@@ -1,0 +1,103 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points never fall back to the CPU on their own."""
+
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def test_import_leaves_jax_and_repro_out():
+    code = ("import json, sys\n"
+            "import repro_torch, repro_torch.explore, repro_torch.fabric\n"
+            "import repro_torch.kernels, repro_torch.explore.__main__\n"
+            "import repro_torch.fabric.prng, repro_torch.obs\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
+            "or m.startswith('repro.'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_sources_import_neither_jax_nor_repro():
+    bad = re.compile(r"^\s*(import jax|from jax|import repro\b(?!_torch)|"
+                     r"from repro\.|from repro import)", re.M)
+    hits = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
+            if bad.search(p.read_text())]
+    assert hits == []
+
+
+def _no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_need_a_card_by_default(monkeypatch):
+    from repro_torch.apps import ml_graphs
+    from repro_torch.explore import ExploreConfig, Explorer
+    from repro_torch.fabric import (FabricSpec, anneal_jax, anneal_jax_batch,
+                                    lower, place, synthetic_netlist)
+
+    _no_card(monkeypatch)
+    spec = FabricSpec(rows=4, cols=4)
+    nl = synthetic_netlist(spec, seed=0)
+    p = lower(nl, spec)
+    for call in (lambda: place(nl, spec, chains=2, sweeps=1),
+                 lambda: anneal_jax(p, chains=2, sweeps=1),
+                 lambda: anneal_jax_batch([p], chains=2, sweeps=1),
+                 lambda: Explorer(ml_graphs(), ExploreConfig())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # asking for the CPU explicitly runs the plain versions
+    assert place(nl, spec, chains=2, sweeps=1, device="cpu").backend == "jax"
+
+
+def test_place_and_route_needs_a_card_by_default(monkeypatch):
+    from repro_torch.apps import mlkernels
+    from repro_torch.core.dse import app_ops
+    from repro_torch.core.mapper import map_application
+    from repro_torch.core.merge import baseline_datapath
+    from repro_torch.fabric import FabricSpec, place_and_route
+
+    _no_card(monkeypatch)
+    name = sorted(mlkernels.ML_APPS)[0]
+    app = mlkernels.build_graph(name)
+    dp = baseline_datapath(app_ops(app))
+    m = map_application(dp, app, name)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        place_and_route(dp, m, app, FabricSpec(rows=4, cols=4), chains=2,
+                        sweeps=1)
+
+
+def test_cuda_wrappers_never_run_plain_on_cpu_tensors_silently():
+    # a CPU tensor takes the plain version and counts no launch
+    from repro_torch.kernels import pnr_cost
+    before = pnr_cost.net_hpwl_rows.launches
+    out = pnr_cost.net_hpwl_rows(
+        torch.zeros(1, dtype=torch.int32),
+        torch.arange(4, dtype=torch.int32)[None],
+        torch.arange(8, dtype=torch.float32).view(1, 4, 2),
+        torch.tensor([[[0, 3]]], dtype=torch.int32),
+        torch.ones((1, 1, 2), dtype=torch.bool))
+    assert pnr_cost.net_hpwl_rows.launches == before
+    assert out.tolist() == [[12.0]]
+
+
+def test_smoke_cli_cpu():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.explore",
+                          "--smoke", "--smoke-device", "cpu"],
+                         capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "explore smoke OK" in out.stdout
