@@ -199,10 +199,11 @@ def evaluate_variants(variants: Sequence[PEVariant],
     ``variant.fabric_costs``.
 
     simulate: with a fabric, additionally modulo-schedule and cycle-
-    accurately simulate every mapping — not ported yet: raises
-    :class:`NotImplementedError`.
+    accurately simulate every mapping, attaching the schedule (``sim_*``
+    fields) and the golden check against the interpreter.
 
-    device: where the placement anneals ("cuda" by default, or "cpu").
+    device: where the placement anneals and the simulation steps ("cuda"
+    by default, or "cpu").
     """
     from ..explore.pipeline import evaluate_pairs
     from ..fabric.options import FabricOptions

@@ -13,12 +13,13 @@ single config::
     res = Explorer(apps, cfg).run()          # anneals on device="cuda"
     res.to_jsonl("results/explore.jsonl")
 
-Stages (``mine -> rank -> merge -> map -> pnr``) are individually
-invokable and memoized by content key; the ``pnr`` stage anneals all
-(variant, app) placements of a bucket signature in one kernel launch.
-``python -m repro_torch.explore --help`` drives the same pipeline from
-the command line.  The ``schedule``/``simulate`` stages and the on-disk
-store of the JAX package are not ported yet.
+Stages (``mine -> rank -> merge -> map -> pnr -> schedule -> simulate``)
+are individually invokable and memoized by content key; the ``pnr`` stage
+anneals all (variant, app) placements of a bucket signature in one kernel
+launch, and the ``simulate`` stage steps every program of a sim bucket in
+one launch of the cycle-stepper kernel.  ``python -m repro_torch.explore
+--help`` drives the same pipeline from the command line.  The on-disk
+store of the JAX package is not ported yet.
 """
 
 from .config import CONFIG_SCHEMA, ConfigFormatError, ExploreConfig

@@ -2,21 +2,22 @@
 
 Subcommands::
 
-    python -m repro_torch.explore per-app --suite image --fabric \
-        --rows 16 --cols 16 --out results/explore_image.jsonl
-    python -m repro_torch.explore domain --suite ml --name PE_ML --fabric
+    python -m repro_torch.explore per-app --suite ml --rows 16 --cols 16 \
+        --simulate --out results/explore_ml.jsonl --dump-config cfg.json
+    python -m repro_torch.explore domain --suite image --name PE_IP
     python -m repro_torch.explore --smoke     # fast end-to-end self check
 
-``--device`` picks where the pnr stage anneals: ``cuda`` (the default;
-fails without a card) or ``cpu`` (the kernels' plain PyTorch versions).
+``--device`` picks where the pnr stage anneals and the simulate stage
+steps its programs: ``cuda`` (the default; fails without a card) or
+``cpu`` (the kernels' plain PyTorch versions).
 ``--dump-config`` writes the resolved :class:`ExploreConfig` as JSON; the
 same exploration replays later with ``--config cfg.json``.  ``--trace
 [PATH]`` writes a Chrome trace of every stage; ``--metrics PATH`` dumps
 the explorer's metrics registry as JSON.
 
-Not ported yet: ``--simulate`` (the schedule/simulate stages exit 1 with
-NotImplementedError), ``--pnr-mode hierarchical``, the on-disk ``--store``
-and the fault/resume smokes of the JAX package's CLI.
+Not ported yet: ``--pnr-mode hierarchical`` (exits 1 with
+NotImplementedError), the on-disk ``--store`` and the fault/resume smokes
+of the JAX package's CLI.
 
 Exit codes: 0 clean run; 1 degraded (StageFailures present, or a
 fail-fast error) — one structured summary line on stderr, never a
@@ -84,7 +85,7 @@ def _add_common(sp: argparse.ArgumentParser) -> None:
                     help="place-and-route every (variant, app) pair")
     sp.add_argument("--simulate", action="store_true",
                     help="also modulo-schedule + cycle-accurately simulate "
-                         "(implies --fabric; not ported yet)")
+                         "(implies --fabric)")
     sp.add_argument("--rows", type=int, default=8)
     sp.add_argument("--cols", type=int, default=8)
     sp.add_argument("--chains", type=int, default=8)
@@ -114,7 +115,8 @@ def _add_common(sp: argparse.ArgumentParser) -> None:
                          "exc | budget | kill | truncate; e.g. "
                          "pnr:exc:0, store.write:kill:2, schedule:budget:1+")
     sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                    help="where the pnr stage anneals (default cuda)")
+                    help="where the pnr stage anneals and the simulate "
+                         "stage runs (default cuda)")
     sp.add_argument("--out", default=None, help="write records jsonl here")
     sp.add_argument("--dump-config", default=None,
                     help="write the resolved ExploreConfig JSON here")
@@ -190,13 +192,13 @@ def _run(args, mode: str) -> int:
 
 
 #: every stage the smoke config executes must appear as a span in its trace
-_SMOKE_STAGES = ("mine", "rank", "merge", "map", "pnr")
+_SMOKE_STAGES = ("mine", "rank", "merge", "map", "pnr", "schedule",
+                 "simulate")
 
 
 def _smoke_case():
     """The paper's Fig. 3 convolution on a 4x4 fabric — the shared
-    (apps, config) case of the self-check smoke (place-and-route only:
-    the simulate stage is not ported yet)."""
+    (apps, config) case of the self-check smoke."""
     from ..core.mining import MiningConfig
     from ..fabric import FabricOptions, FabricSpec
     from ..graphir import trace_scalar
@@ -211,15 +213,16 @@ def _smoke_case():
         mining=MiningConfig(min_support=2, max_pattern_nodes=5),
         max_merge=2,
         fabric=FabricOptions(spec=FabricSpec(rows=4, cols=4),
-                             chains=2, sweeps=4))
+                             chains=2, sweeps=4, simulate=True))
     return apps, cfg
 
 
 def smoke(trace=None, metrics_path=None, device="cuda") -> int:
     """Fast end-to-end self check.
 
-    Runs the staged pipeline — including batched PnR on ``device`` — on
-    the paper's Fig. 3 convolution example, then asserts the two
+    Runs the full staged pipeline — including batched PnR and the cycle-
+    accurate golden check on ``device`` — on the paper's Fig. 3
+    convolution example, then asserts the two
     load-bearing API properties: stage memoization (a downstream-only
     config change performs zero re-mines) and the jsonl round trip.  With
     ``trace`` set, the exported Chrome JSON must parse and contain one
@@ -248,6 +251,7 @@ def smoke(trace=None, metrics_path=None, device="cuda") -> int:
     rows = res.records()
     assert rows, "no records produced"
     assert all(r.fabric_wirelength > 0 for r in rows), "pnr left no wires"
+    assert all(r.sim_verified == 1 for r in rows), "golden check failed"
     mines = ex.stats["mine"]
     assert mines == 1, f"expected 1 mine, got {mines}"
 
@@ -264,9 +268,17 @@ def smoke(trace=None, metrics_path=None, device="cuda") -> int:
         "jsonl round trip diverged"
     assert ex.stats["pnr_dispatch"] >= 1, "no batched pnr dispatch ran"
 
+    # the batch-first schedule/simulate stages actually batched: every
+    # simulated pair rode a bucket launch, not the per-pair loop
+    assert ex.stats["sim_dispatch"] >= 1, "no batched sim dispatch ran"
+    assert ex.stats["sched_group"] >= 1, "no lockstep schedule group ran"
+    assert all(r.sim_bucket not in ("", "serial") for r in rows), \
+        "records missing batched sim_bucket provenance"
+
     print(res.table())
     print(f"# explore smoke OK: {len(rows)} records, "
           f"{ex.stats['pnr_dispatch']} batched pnr dispatch(es), "
+          f"{ex.stats['sim_dispatch']} batched sim dispatch(es), "
           f"stats={dict(ex.stats)}")
     return 0
 
@@ -277,7 +289,8 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true",
                     help="fast end-to-end self check")
     ap.add_argument("--smoke-device", default="cuda", choices=("cuda", "cpu"),
-                    help="where --smoke anneals (default cuda)")
+                    help="where --smoke anneals and simulates "
+                         "(default cuda)")
     ap.add_argument("--trace", nargs="?", const="out.trace.json",
                     default=None, metavar="PATH",
                     help="record a pipeline trace and write Chrome "

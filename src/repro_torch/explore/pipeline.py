@@ -1,15 +1,17 @@
-"""The staged exploration pipeline: mine -> rank -> merge -> map -> pnr.
+"""The staged exploration pipeline: mine -> rank -> merge -> map -> pnr ->
+schedule -> simulate.
 
 :class:`Explorer` runs the paper's flow (Sec. IV, Fig. 6) as explicit,
 individually invokable stages over one :class:`ExploreConfig`.  Every
 stage is memoized by a *content key* — a hash of the application graph
 plus exactly the upstream config fields that stage depends on — so
-changing the annealing budget reuses every upstream artifact instead of
-re-mining and re-merging:
+flipping ``simulate=True`` or changing the annealing budget reuses every
+upstream artifact instead of re-mining and re-merging:
 
     ex = Explorer(apps, cfg)                         # device="cuda"
     res = ex.run()                                   # full pipeline
-    res2 = ex.with_config(fabric=replace(cfg.fabric, sweeps=64)).run()
+    res2 = ex.with_config(fabric=replace(cfg.fabric,
+                                         simulate=True)).run()
     ex.stats["mine"]     # still the first run's count: zero re-mines
 
 The ``pnr`` stage is batch-first: all (variant, app) mappings are
@@ -21,9 +23,17 @@ loop — it is what the deprecated ``specialize_per_app`` / ``domain_pe`` /
 ``evaluate_variants`` shims pin.  Both produce the records of the JAX
 package's Explorer bit for bit.
 
-The ``schedule`` and ``simulate`` stages (modulo scheduling and cycle-
-accurate simulation) are not ported yet: a config with
-``fabric.simulate=True`` raises :class:`NotImplementedError`.
+The ``schedule`` and ``simulate`` stages are batch-first the same way
+(``sim_batch="grouped"``): modulo scheduling advances all pairs of one
+fabric signature in lockstep with their slot-conflict scans stacked into
+one numpy gather per round (:func:`repro_torch.sim.modulo_schedule_batch`),
+and every bucket-compatible group of scheduled programs runs in ONE
+launch of the cycle-stepper kernel (:func:`repro_torch.sim.simulate_batch`)
+on the Explorer's ``device``.  Golden-check inputs are seeded by a content
+nonce per pair (:meth:`repro_torch.fabric.options.FabricOptions.
+input_seed`), so schedules, simulated outputs, and verification flags are
+bit-identical between the grouped and serial modes, independent of which
+pairs share a bucket, and equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -37,7 +47,7 @@ from dataclasses import dataclass, replace as _dc_replace
 from typing import Any, Callable, Dict, List, Optional, Tuple, TYPE_CHECKING
 
 from .. import faultinject
-from ..core.costmodel import AppCost, evaluate_mapping
+from ..core.costmodel import AppCost, attach_sim, evaluate_mapping
 from ..core.dse import (DSEResult, PEVariant, _dedup_keep_maximal, app_ops,
                         build_variants)
 from ..core.mapper import Mapping, map_application
@@ -62,12 +72,6 @@ Pair = Tuple[str, str]                         # (pe_name, app_name)
 #: sentinel for a unit of work that failed twice (batch + serial retry)
 #: in isolate mode — never stored in the memo, never a real stage value
 _FAILED = object()
-
-#: the schedule/simulate stages wait for the simulator slice of the port
-SIMULATE_NOT_PORTED = (
-    "the schedule/simulate stages are not ported yet (ROADMAP.md, "
-    "'Simulator': sim/{schedule,golden,cycle}.py and the cycle-stepper "
-    "kernel K3); run with fabric.simulate=False")
 
 
 # ---------------------------------------------------------------------------
@@ -109,11 +113,19 @@ def _pnr_fields(options: "FabricOptions", pnr_batch: str,
     return sig
 
 
+def _sched_fields(options: "FabricOptions") -> Tuple:
+    return (options.sched_max_ii, options.sched_budget_factor)
+
+
+def _sim_fields(options: "FabricOptions") -> Tuple:
+    return (options.sim_iterations, options.sim_batch, options.sim_backend,
+            options.sim_verify, options.seed, options.sim_max_cycles)
+
+
 def _pair_nonce(pe_name: str, app_name: str) -> int:
     """Content nonce for one (variant, app) pair: seeds the pair's golden
     test vectors so simulated results never depend on bucket grouping."""
     return zlib.crc32(f"{pe_name}:{app_name}".encode())
-
 
 
 # ---------------------------------------------------------------------------
@@ -236,13 +248,52 @@ def pnr_grouped(items: List[Tuple[str, Any, Mapping, Graph, int]],
     return results
 
 
+def _verify_prog(prog, app: Graph, label: str, options, nonce: int,
+                 device="cuda") -> int:
+    """Golden-check one SimProgram against graphir.interp (per-pair path),
+    simulating on ``device``.
+
+    Returns 1 (bit-exact), -1 when ``options.sim_verify`` is off; raises
+    on mismatch.
+    """
+    if not options.sim_verify:
+        return -1
+    from ..sim import check_against_interp, random_inputs
+    from ..sim.cycle import check_cycle_budget
+    check_cycle_budget(prog, options.sim_iterations, options.sim_max_cycles)
+    inputs = random_inputs(prog, options.sim_iterations, options.sim_batch,
+                           seed=options.input_seed(nonce))
+    _, err, exact = check_against_interp(prog, app, inputs,
+                                         backend=options.sim_backend,
+                                         device=device)
+    return _require_exact(err, exact, label)
+
+
+def _require_exact(err: float, exact: bool, label: str) -> int:
+    if not (exact and err == 0.0):
+        raise AssertionError(f"simulated {label} diverges from "
+                             f"graphir.interp (max |err|={err:.3e})")
+    return 1
+
+
+def _sim_pair(dp, mapping, app, pnr, options, nonce: int,
+              device="cuda") -> Tuple[Any, int]:
+    """(SimProgram, verified) for one placed-and-routed pair."""
+    from ..sim import build_sim
+    prog, _ = build_sim(dp, mapping, app, pnr=pnr,
+                        max_ii=options.sched_max_ii,
+                        budget_factor=options.sched_budget_factor)
+    return prog, _verify_prog(prog, app, mapping.app_name, options, nonce,
+                              device)
+
+
 def evaluate_pairs(variants, apps: Dict[str, Graph],
                    options: Optional["FabricOptions"], *,
-                   pnr_batch: str = "serial") -> None:
+                   pnr_batch: str = "serial", device="cuda") -> None:
     """Map + cost every (variant, app) pair in place; optional array-level
-    PnR and time-domain simulation.  This is the engine behind the
-    deprecated :func:`repro.core.dse.evaluate_variants` shim; the serial
-    mode reproduces the legacy loop bit-for-bit.
+    PnR and time-domain simulation on ``device``.  This is the engine
+    behind the deprecated :func:`repro_torch.core.dse.evaluate_variants`
+    shim; the serial mode reproduces the legacy loop bit-for-bit.
     """
     from ..fabric.cost import attach_fabric
 
@@ -270,6 +321,12 @@ def evaluate_pairs(variants, apps: Dict[str, Graph],
     for (v, app_name, app, mapping, cost), pnr in zip(todo, pnrs):
         v.fabric_costs[app_name] = pnr.cost
         attach_fabric(cost, pnr.cost)
+        if options.simulate:
+            prog, verified = _sim_pair(v.datapath, mapping, app, pnr,
+                                       options,
+                                       _pair_nonce(v.name, app_name), device)
+            attach_sim(cost, v.datapath, prog.schedule,
+                       fabric_cost=pnr.cost, verified=verified)
 
 
 # ---------------------------------------------------------------------------
@@ -329,16 +386,19 @@ class Explorer:
     ``merge()``     PE variant datapaths (Sec. III-C / V)
     ``map()``       application covers per (variant, app) (Sec. IV)
     ``pnr()``       array place-and-route — batch-first across pairs
+    ``schedule()``  modulo schedules / sim programs per pair
+    ``simulate()``  cycle-accurate golden verification per pair
     ``run()``       everything the config asks for -> :class:`ExploreResult`
 
     ``with_config(...)`` derives a new Explorer over changed options that
-    *shares the memo store*, so downstream-only changes (annealing budget)
-    reuse all upstream artifacts.
+    *shares the memo store*, so downstream-only changes (annealing budget,
+    ``simulate=True``) reuse all upstream artifacts.
 
-    ``device`` (default ``"cuda"``) is where the pnr stage anneals; with
-    no card the constructor raises unless ``device="cpu"`` is passed.
-    The device is not part of any memo key: both devices compute the same
-    placements bit for bit.
+    ``device`` (default ``"cuda"``) is where the pnr stage anneals and the
+    simulate stage steps its programs; with no card the constructor raises
+    unless ``device="cpu"`` is passed.  The device is not part of any memo
+    key: both devices compute the same placements and simulated outputs
+    bit for bit.
     """
 
     def __init__(self, apps: Dict[str, Graph], config: ExploreConfig, *,
@@ -685,26 +745,240 @@ class Explorer:
                 if key in self._store}
 
     def schedule(self) -> Dict[Pair, Any]:
-        """Modulo scheduling — not ported yet."""
-        raise NotImplementedError(SIMULATE_NOT_PORTED)
+        """Modulo-scheduled SimProgram per pair — batch-first.
+
+        ``sim_batch="grouped"`` schedules every missing pair through
+        :func:`repro_torch.sim.modulo_schedule_batch`: pairs sharing a fabric
+        signature advance in lockstep with their slot-conflict scans
+        stacked into one numpy evaluation per round.  ``"serial"`` is the
+        legacy per-pair loop; schedules are bit-identical either way.
+        """
+        from ..sim import build_sim, build_sim_batch
+        cfg = self.config
+        options = cfg.fabric
+        if options is None:
+            raise ValueError("schedule stage requires config.fabric")
+        mappings = self.map()
+        pnrs = self.pnr()
+        sig = _pnr_fields(options, cfg.pnr_batch, cfg.pnr_mode)
+
+        def serial_sched(v, a):
+            return build_sim(v.datapath, mappings[(v.name, a)],
+                             self.apps[a], pnr=pnrs[(v.name, a)],
+                             max_ii=options.sched_max_ii,
+                             budget_factor=options.sched_budget_factor)[0]
+
+        keys: Dict[Pair, Tuple] = {}
+        misses = []
+        for v, app_name, map_key in self._pairs():
+            if (v.name, app_name) not in pnrs:       # failed upstream
+                continue
+            key = ("sched", map_key[1:], sig, cfg.sim_batch,
+                   _sched_fields(options))
+            if key in self._failed:          # degraded earlier this run
+                continue
+            keys[(v.name, app_name)] = key
+            if key not in self._store:
+                misses.append((v, app_name, key))
+                self.metrics.inc("memo.miss.sched")
+            else:
+                self.metrics.inc("memo.hit.sched")
+
+        with span("schedule", pairs=len(keys), misses=len(misses)), \
+                stage_memory(self.metrics, "schedule"):
+            if misses and cfg.sim_batch == "grouped":
+                items = [(v.datapath, mappings[(v.name, a)], self.apps[a],
+                          pnrs[(v.name, a)]) for v, a, key in misses]
+                progs = build_sim_batch(
+                    items, stats=self.stats,
+                    max_ii=options.sched_max_ii,
+                    budget_factor=options.sched_budget_factor,
+                    isolate=self._isolating())
+                for (v, a, key), prog in zip(misses, progs):
+                    if isinstance(prog, Exception):
+                        prog = self._retry("schedule",
+                                           lambda v=v, a=a: serial_sched(
+                                               v, a),
+                                           pe=v.name, app=a)
+                        if prog is _FAILED:
+                            self._failed.add(key)
+                            continue
+                    self._store[key] = prog
+                    self.stats["sched"] += 1
+                    obs_event("schedule.pair", pe=v.name, app=a, ii=prog.ii)
+            elif misses:
+                for v, a, key in misses:
+                    with span("schedule.pair", pe=v.name, app=a):
+                        prog = self._attempt(
+                            "schedule",
+                            lambda v=v, a=a: serial_sched(v, a),
+                            pe=v.name, app=a)
+                    if prog is _FAILED:
+                        self._failed.add(key)
+                        continue
+                    self._store[key] = prog
+                    self.stats["sched"] += 1
+        return {pair: self._store[key] for pair, key in keys.items()
+                if key in self._store}
 
     def simulate(self) -> Dict[Pair, int]:
-        """Cycle-accurate simulation — not ported yet."""
-        raise NotImplementedError(SIMULATE_NOT_PORTED)
+        """Golden-verification flags per pair (−1 when verify is off) —
+        batch-first.
+
+        ``sim_batch="grouped"`` (with the "jax" tile-step backend) groups
+        every missing pair's SimProgram by :func:`repro_torch.sim.sim_signature`
+        and runs each bucket through ONE launch of the cycle stepper
+        (:func:`repro_torch.sim.simulate_batch`); the interpreter comparison
+        stays per-pair (cheap numpy).  Content-nonce input seeding makes
+        each flag — and the simulated outputs behind it — independent of
+        which pairs shared the dispatch, and bit-identical to the
+        ``"serial"`` per-pair loop.
+        """
+        cfg = self.config
+        options = cfg.fabric
+        if options is None:
+            raise ValueError("simulate stage requires config.fabric")
+        progs = self.schedule()
+
+        keys: Dict[Pair, Tuple] = {}
+        misses = []
+        for v, app_name, map_key in self._pairs():
+            pair = (v.name, app_name)
+            if pair not in progs:                    # failed upstream
+                continue
+            key = ("sim", map_key[1:],
+                   _pnr_fields(options, cfg.pnr_batch, cfg.pnr_mode),
+                   _sim_fields(options), cfg.sim_batch,
+                   _sched_fields(options))
+            if key in self._failed:          # degraded earlier this run
+                continue
+            keys[pair] = key
+            if key not in self._store:
+                misses.append((v, app_name, key))
+                self.metrics.inc("memo.miss.sim")
+            else:
+                self.metrics.inc("memo.hit.sim")
+
+        def serial_sim(v, a):
+            return _verify_prog(progs[(v.name, a)], self.apps[a],
+                                f"{a} on {v.name}", options,
+                                _pair_nonce(v.name, a), self.device)
+
+        grouped = (cfg.sim_batch == "grouped"
+                   and options.sim_backend == "jax" and options.sim_verify)
+        with span("simulate", pairs=len(keys), misses=len(misses)), \
+                stage_memory(self.metrics, "simulate"):
+            if misses and grouped:
+                from ..sim import (compare_with_interp, random_inputs,
+                                   sim_signature, simulate_batch)
+                from ..sim.cycle import check_cycle_budget
+                by_bucket: Dict[Tuple, List[int]] = defaultdict(list)
+                inputs: Dict[int, Any] = {}
+                retry: Dict[int, Exception] = {}
+                for i, (v, a, key) in enumerate(misses):
+                    prog = progs[(v.name, a)]
+                    try:
+                        faultinject.fire("simulate", pe=v.name, app=a)
+                        check_cycle_budget(prog, options.sim_iterations,
+                                           options.sim_max_cycles,
+                                           metrics=self.metrics)
+                        inputs[i] = random_inputs(
+                            prog, options.sim_iterations, options.sim_batch,
+                            seed=options.input_seed(_pair_nonce(v.name, a)))
+                    except Exception as e:
+                        if not self._isolating():
+                            raise
+                        retry[i] = e
+                        continue
+                    by_bucket[sim_signature(prog, options.sim_iterations,
+                                            options.sim_batch)].append(i)
+                for bucket, idxs in by_bucket.items():
+                    try:
+                        results = simulate_batch(
+                            [progs[(misses[i][0].name, misses[i][1])]
+                             for i in idxs], [inputs[i] for i in idxs],
+                            metrics=self.metrics, device=self.device)
+                    except Exception as e:
+                        if not self._isolating():
+                            raise
+                        for i in idxs:   # whole-dispatch failure: every
+                            retry[i] = e  # rider retries serially
+                        continue
+                    self.stats["sim_dispatch"] += 1
+                    self.metrics.observe("sim.bucket_size", len(idxs))
+                    for i, res in zip(idxs, results):
+                        v, a, key = misses[i]
+                        try:
+                            with span("simulate.pair", pe=v.name, app=a):
+                                err, exact = compare_with_interp(
+                                    progs[(v.name, a)], self.apps[a],
+                                    inputs[i], res)
+                                self._store[key] = _require_exact(
+                                    err, exact, f"{a} on {v.name}")
+                            self.stats["sim"] += 1
+                        except Exception as e:
+                            if not self._isolating():
+                                raise
+                            retry[i] = e
+                for i in sorted(retry):
+                    v, a, key = misses[i]
+                    flag = self._retry("simulate",
+                                       lambda v=v, a=a: serial_sim(v, a),
+                                       pe=v.name, app=a)
+                    if flag is _FAILED:
+                        self._failed.add(key)
+                        continue
+                    self._store[key] = flag
+                    self.stats["sim"] += 1
+            elif misses:
+                for v, a, key in misses:
+                    with span("simulate.pair", pe=v.name, app=a):
+                        flag = self._attempt(
+                            "simulate",
+                            lambda v=v, a=a: serial_sim(v, a),
+                            pe=v.name, app=a)
+                    if flag is _FAILED:
+                        self._failed.add(key)
+                        continue
+                    self._store[key] = flag
+                    self.stats["sim"] += 1
+        return {pair: self._store[key] for pair, key in keys.items()
+                if key in self._store}
+
+    def sim_buckets(self, progs: Dict[Pair, Any]) -> Dict[Pair, str]:
+        """Provenance: the batched-simulate bucket each pair rides.
+
+        Derived purely from each pair's own program (bucket keys are
+        per-program paddings), so this is stable across runs and memo
+        hits.  Mirrors the gate :meth:`simulate` applies: ``"serial"``
+        when the per-pair loop runs (configured, or the fallback for
+        non-"jax" tile-step backends), ``""`` when verification is off
+        and no simulation executes at all.
+        """
+        options = self.config.fabric
+        if not options.sim_verify:
+            return {pair: "" for pair in progs}
+        if (self.config.sim_batch != "grouped"
+                or options.sim_backend != "jax"):
+            return {pair: "serial" for pair in progs}
+        from ..sim import sim_signature
+        return {pair: "x".join(str(d) for d in sim_signature(
+                    prog, options.sim_iterations, options.sim_batch))
+                for pair, prog in progs.items()}
 
     # -- full pipeline -----------------------------------------------------
     def run(self) -> ExploreResult:
         cfg = self.config
         self.failures = []               # per-run; stages re-attempt what
         self._failed.clear()             # failed last time (never memoized)
-        if cfg.simulate:
-            self.schedule()              # raises: not ported yet
         t0 = time.monotonic()
         with span("explore.run", mode=cfg.mode):
             ranked = self.rank()
             variants = self.merge()
             self.map()
             pnrs = self.pnr() if cfg.fabric is not None else {}
+            progs = self.schedule() if cfg.simulate else {}
+            verified = self.simulate() if cfg.simulate else {}
         elapsed = time.monotonic() - t0
 
         def fresh(v: PEVariant, app_names) -> PEVariant:
@@ -720,6 +994,13 @@ class Explorer:
                     from ..fabric.cost import attach_fabric
                     out.fabric_costs[a] = pnrs[(v.name, a)].cost
                     attach_fabric(cost, pnrs[(v.name, a)].cost)
+                if (v.name, a) in progs:
+                    # a pair whose simulate stage degraded keeps its
+                    # schedule columns with verified=0 (attempted, no
+                    # golden proof); -1 stays "verification off"
+                    attach_sim(cost, v.datapath, progs[(v.name, a)].schedule,
+                               fabric_cost=pnrs[(v.name, a)].cost,
+                               verified=verified.get((v.name, a), 0))
                 out.costs[a] = cost
             return out
 
@@ -740,6 +1021,7 @@ class Explorer:
                 [fresh(v, sorted(self.apps)) for v in
                  variants[cfg.domain_name]], elapsed)
         return ExploreResult(cfg, _digest(cfg.to_dict()), dict(self.apps),
-                             results, elapsed, {},
+                             results, elapsed,
+                             self.sim_buckets(progs) if progs else {},
                              self.metrics.to_dict(), list(self.failures))
 

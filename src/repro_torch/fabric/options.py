@@ -39,7 +39,10 @@ class FabricOptions:
     sim_iterations/sim_batch — pipelined iterations x input batches fed to
                      the simulator (also drives the golden check).
     sim_backend    — tile-step dispatch of the JAX package: "jax" |
-                     "pallas" (the simulate stage is not ported yet).
+                     "pallas".  Both run the same cycle-stepper kernel
+                     here; only "jax" rides the batch-first simulate
+                     stage, as in the JAX package (other values take the
+                     per-pair loop), so records and memo keys match.
     sim_verify     — bit-compare simulated outputs against graphir.interp
                      and record the result (raises on mismatch).
 

@@ -1,6 +1,7 @@
 """The port's Explorer (``device="cpu"``) against the JAX package's on the
 ML suite with place-and-route on: records, dispatch counts, memoization,
-the jsonl round trip, and the stages that are not ported yet.
+the jsonl round trip, and the placement mode that is not ported yet.
+The schedule and simulate stages are held in ``test_torch_sim.py``.
 
 Tolerance: exact equality of every ``ExploreRecord`` field (the pnr
 columns come from integer HPWL and bit-identical move streams).  Mining
@@ -80,13 +81,6 @@ def test_jsonl_round_trip(runs, tmp_path):
     assert [r.to_dict() for r in back] \
         == [r.to_dict() for r in pres.records()]
     assert read_manifest(path)["torch"]
-
-
-def test_simulate_not_ported():
-    cfg = _cfg(TConfig, TMining, TOptions, TSpec)
-    cfg = cfg.replace(fabric=dataclasses.replace(cfg.fabric, simulate=True))
-    with pytest.raises(NotImplementedError, match="simulate"):
-        TExplorer(t_ml_graphs(), cfg, device="cpu").run()
 
 
 def test_hierarchical_not_ported():

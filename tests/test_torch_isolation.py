@@ -20,6 +20,7 @@ def test_import_leaves_jax_and_repro_out():
             "import repro_torch, repro_torch.explore, repro_torch.fabric\n"
             "import repro_torch.kernels, repro_torch.explore.__main__\n"
             "import repro_torch.fabric.prng, repro_torch.obs\n"
+            "import repro_torch.sim, repro_torch.kernels.sim_step\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
             "or m.startswith('repro.'))))\n")
