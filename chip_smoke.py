@@ -34,11 +34,29 @@ version:
    K1/K2 launched and K3 launched once per sim bucket;
 5. time each kernel and its plain version with CUDA events at the main
    path's largest signature (camera on PE1), K3 also at a larger input
-   batch, and print one JSON line ``{"kernels": [...]}`` with launches,
-   max |diff|, times and bounds;
-6. print ``{"ok": true, "device": {...}}`` as the last line.
+   batch;
+6. the fused-PE path: run the Explorer's front half on the paper's
+   Fig. 11 ML suite with the benchmark's settings (PE_ML, then per-app
+   variants of up to 3 merged subgraphs), and, with the launch counters
+   set to 0 just before and read just after, apply every configuration
+   of every variant through ``kernel_from_config`` (K4, Triton generated
+   per pattern) to float32 operands of shape (4096, 8192) — the MLP
+   activation of the Llama 3.2 1B configuration the repository carries
+   (d_ff 8192) at 4096 tokens — and run ``matmul_fused`` (K5, CUDA C++)
+   at x (4096, 2048) @ w (2048, 8192) with four epilogues: none, the
+   Conv tail (bias + ReLU), the Block tail (skip-add + ReLU), and the
+   Conv tail stored as bfloat16; hold every result against its plain
+   version on the card, K4 also in bfloat16 once per distinct pattern,
+   both against the float64 oracles on small inputs, and time K4 at the
+   largest and the median distinct pattern and K5 on the first three
+   epilogues;
+7. print one JSON line ``{"kernels": [...]}`` with launches, max |diff|,
+   times and bounds of K1-K5, then ``{"ok": true, "device": {...}}`` as
+   the last line.
 
-Any failure exits nonzero; no phase catches an error and carries on.
+Any failure exits nonzero; no phase catches an error and carries on
+(phase 6 counts the configurations the port refuses with the reference's
+``ValueError`` and prints them).
 Bounds: bytes over 3.35 TB/s and operations over 67 TFLOP/s (float32
 outside the tensor cores), the H100 SXM's published peaks at 700 W.
 """
@@ -59,6 +77,10 @@ FP32_OPS_PER_S = 67e12
 CSRC = "src/repro_torch/kernels/csrc/"
 #: the larger input batch K3 is also timed at (sim_batch x sim_iterations)
 BIG_BATCH, BIG_ITERS = 256, 16
+#: phase 6 widths: Llama 3.2 1B (src/repro/configs/llama3_2_1b.py) d_model
+#: and d_ff, at 4096 tokens
+TOKENS, D_MODEL, D_FF = 4096, 2048, 8192
+K4_TOL, K4_BF16_TOL, K5_TOL = 1e-5, 5e-2, 1e-4
 
 
 def fail(msg: str) -> None:
@@ -110,14 +132,19 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this smoke needs a card")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
-        from repro_torch.apps import image_graphs
+        from repro_torch.apps import image_graphs, ml_graphs
         from repro_torch.core.mining import MiningConfig
         from repro_torch.explore import ExploreConfig, Explorer
         from repro_torch.fabric import (FabricOptions, FabricSpec,
                                         batch_signature, extract_netlist,
                                         lower)
         from repro_torch.fabric.place import KERNEL_INPUTS, batch_inputs
-        from repro_torch.kernels import build, pnr_cost, sim_step
+        from repro_torch.graphir import pattern_from_spec
+        from repro_torch.graphir.graph import free_in_ports
+        from repro_torch.kernels import (build, gemm, kernel_from_config,
+                                         matmul_fused, pe_fused, pnr_cost,
+                                         sim_step)
+        from repro_torch.kernels.ref import ref_gemm_pe, ref_pe
         from repro_torch.obs import disable_tracing, enable_tracing
         from repro_torch.sim import random_inputs, sim_signature
         from repro_torch.sim.cycle import bucket_tensors
@@ -154,6 +181,7 @@ def main() -> int:
                 print("  " + line.strip())
     pnr_cost._lib()                     # load and type the libraries
     sim_step._lib()
+    gemm._lib()
 
     # -- 3: front half + kernels vs plain on every signature -------------
     phase("3 front half, kernels vs plain versions")
@@ -403,6 +431,213 @@ def main() -> int:
           f"({'x'.join(map(str, bsig))}): {k3_big_ms:.4f} ms, == plain",
           flush=True)
 
+    # -- 6: the fused-PE path: ML-suite PEs on K4, MAC + epilogue on K5 ---
+    phase("6 fused-PE path: ML-suite configurations through K4, "
+          "matmul + PE epilogue through K5")
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("torch.backends.cuda.matmul.allow_tf32 is on: the plain K5 "
+             "product would not be float32")
+    # benchmarks/common.py BENCH_MINING, benchmarks/fig11_ml_pe.py
+    bench_mining = MiningConfig(min_support=4, max_pattern_nodes=8,
+                                time_budget_s=45, max_patterns_per_level=60)
+    t0 = time.perf_counter()
+    ml = Explorer(ml_graphs(), ExploreConfig(
+        mode="domain", mining=bench_mining, per_app_subgraphs=2,
+        domain_name="PE_ML"), device="cuda")
+    ml_runs = [ml.run(), ml.with_config(mode="per_app", max_merge=3).run()]
+    variants = [v for r in ml_runs for dse in r.results.values()
+                for v in dse.variants]
+    configs = [(v.name, c, v.datapath) for v in variants
+               for c in sorted(v.datapath.configs)]
+    print(f"ML-suite front half: {len(variants)} variants, {len(configs)} "
+          f"configurations in {time.perf_counter() - t0:.1f} s", flush=True)
+    shape = (TOKENS, D_FF)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    n_max = max(len(free_in_ports(dp.configs[c].pattern))
+                for _, c, dp in configs)
+    pool = [torch.rand(shape, generator=gen, device=dev) * 3 - 1.5
+            for _ in range(n_max)]
+    x5 = torch.randn((TOKENS, D_MODEL), generator=gen, device=dev)
+    w5 = torch.randn((D_MODEL, D_FF), generator=gen, device=dev) \
+        / D_MODEL ** 0.5                    # a layer's initialisation
+    bias = torch.randn((D_FF,), generator=gen, device=dev) * 0.1
+    skip = torch.randn(shape, generator=gen, device=dev)
+    relu_tail = [("add", (-1, -1)), ("const", ()), ("max", (0, 1))]
+    conv_tail = pattern_from_spec(relu_tail)      # apps/mlkernels.py Conv
+    block_tail = pattern_from_spec(relu_tail)     # apps/mlkernels.py Block
+    k5_cases = {
+        "a": ((), dict()),
+        "b": ((bias,), dict(epilogue=conv_tail, extra_kinds=("vec",))),
+        "c": ((skip,), dict(epilogue=block_tail, extra_kinds=("full",))),
+        "d": ((bias,), dict(epilogue=conv_tail, extra_kinds=("vec",),
+                            out_dtype=torch.bfloat16)),
+    }
+
+    def max_diff(got, want) -> float:
+        got, want = got.double(), want.double()
+        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+        return float(torch.where(same, 0.0, (got - want).abs()).max())
+
+    pe_fused.pe_apply.launches = 0
+    gemm.gemm_pe.launches = 0
+    applied, refused, k4_err = 0, [], 0.0
+    distinct = {}
+    for vname, cname, dp in configs:
+        pat = dp.configs[cname].pattern
+        try:
+            fn = kernel_from_config(dp, cname)
+        except ValueError as e:          # the reference refuses it too
+            refused.append((vname, cname, str(e)))
+            continue
+        xs = pool[:len(free_in_ports(pat))]
+        got = fn(*xs)
+        applied += 1
+        want = pe_fused.pe_apply_plain(pat, *xs)
+        for g, w in zip(*[o if isinstance(o, tuple) else (o,)
+                          for o in (got, want)]):
+            if not bool(torch.isclose(g, w, rtol=K4_TOL, atol=K4_TOL,
+                                      equal_nan=True).all()):
+                fail(f"K4 differs from its plain version on {vname}/{cname}")
+            k4_err = max(k4_err, max_diff(g, w))
+        distinct.setdefault(pe_fused.lower_pattern(pat).key,
+                            (f"{vname}/{cname}", pat))
+    k5_out = {}
+    for case, (extras, kw) in k5_cases.items():
+        k5_out[case] = matmul_fused(x5, w5, *extras, **kw)
+    torch.cuda.synchronize()
+    launches["k4"] = pe_fused.pe_apply.launches
+    launches["k5"] = gemm.gemm_pe.launches
+    print(f"K4 applied {applied} configurations ({len(distinct)} distinct "
+          f"patterns), each == plain at {K4_TOL}; refused {len(refused)} "
+          f"as the reference does: {refused}; launches "
+          f"{ {k: launches[k] for k in ('k4', 'k5')} }", flush=True)
+    if launches["k4"] != applied or applied == 0:
+        fail(f"K4 launched {launches['k4']} times for {applied} "
+             f"configurations")
+    if launches["k5"] != len(k5_cases):
+        fail(f"K5 launched {launches['k5']} times for {len(k5_cases)} "
+             f"matmuls")
+    k5_err = 0.0
+    for case, (extras, kw) in k5_cases.items():
+        got = k5_out[case]
+        want = gemm.gemm_pe_plain(x5, w5, *extras, **kw)
+        if got.shape != shape or got.dtype != want.dtype:
+            fail(f"K5 ({case}) returned {got.dtype} {tuple(got.shape)}")
+        d = (got.double() - want.double()).abs()
+        lim = K5_TOL * want.double().abs().clamp(min=1.0)
+        if case == "d":
+            # one bfloat16 rounding step: float32 sums that differ in the
+            # last bits can round to neighbouring bfloat16 values; the
+            # kernel's own float32 result (b) rounds to (d) exactly
+            lim = torch.maximum(lim, want.double().abs() * 2.0 ** -8)
+            if not torch.equal(got, k5_out["b"].to(torch.bfloat16)):
+                fail("K5 (d) is not K5 (b) rounded to bfloat16")
+        if not bool((d <= lim).all()) or not bool(torch.isfinite(got).all()):
+            fail(f"K5 ({case}) differs from its plain version: max |diff| "
+                 f"{float(d.max())}")
+        if case != "d":
+            k5_err = max(k5_err, float(d.max()))
+    print(f"K5 (a)-(d) == plain within 1e-4 * max(1, |plain|); max |diff| "
+          f"{k5_err}", flush=True)
+
+    # outside the counted run: bfloat16 once per distinct pattern, and
+    # both kernels against the float64 oracles on small inputs
+    small = torch.rand((64, 128), generator=gen, device=dev) * 3 - 1.5
+    for key, (label, pat) in sorted(distinct.items()):
+        n_in = len(free_in_ports(pat))
+        xs = [x.to(torch.bfloat16) for x in pool[:n_in]]
+        got = pe_fused.make_pe_kernel(pat)(*xs)
+        want = pe_fused.pe_apply_plain(pat, *xs)
+        filled = pat.copy()          # mined constants carry no value:
+        for n, op in filled.nodes.items():     # the kernels bake 0.0
+            if op == "const" and filled.attr(n, "value") is None:
+                filled.attrs.setdefault(n, {})["value"] = 0.0
+        oracle = ref_pe(filled, *[small * (i + 1) / n_in
+                                  for i in range(n_in)])
+        got_small = pe_fused.make_pe_kernel(pat)(
+            *[small * (i + 1) / n_in for i in range(n_in)])
+        for g, w in zip(*[o if isinstance(o, tuple) else (o,)
+                          for o in (got, want)]):
+            if not bool(torch.isclose(g.float(), w.float(), rtol=K4_BF16_TOL,
+                                      atol=K4_BF16_TOL, equal_nan=True).all()):
+                fail(f"K4 in bfloat16 differs from its plain version on "
+                     f"{label}")
+        for g, w in zip(*[o if isinstance(o, tuple) else (o,)
+                          for o in (got_small, oracle)]):
+            w = torch.as_tensor(w, device=dev).double().expand(g.shape)
+            if not bool(torch.isclose(g.double(), w, rtol=K4_TOL,
+                                      atol=K4_TOL, equal_nan=True).all()):
+                fail(f"K4 differs from the float64 oracle on {label}")
+    xs5, ws5 = x5[:100, :70], w5[:70, :50]
+    for extras, kw in ((), {}), ((bias[:50],), k5_cases["b"][1]), \
+            ((skip[:100, :50],), k5_cases["c"][1]):
+        got = matmul_fused(xs5, ws5, *extras, **kw)
+        want = ref_gemm_pe(xs5.cpu(), ws5.cpu(),
+                           *[e.cpu() for e in extras], **kw)
+        if not torch.allclose(got.cpu(), want, rtol=K5_TOL, atol=K5_TOL):
+            fail("K5 differs from the float64 oracle at 100x70x50")
+    print(f"K4 in bfloat16 == plain at {K4_BF16_TOL} on {len(distinct)} "
+          f"patterns; K4 and K5 == float64 oracles on small inputs",
+          flush=True)
+
+    # times: K4 at the largest and the median distinct pattern
+    def pe_size(item):
+        prog = pe_fused.lower_pattern(item[1])
+        return (prog.n_in + len(prog.outs), prog.n_compute, item[0])
+
+    ranked = sorted(distinct.values(), key=pe_size)
+    numel = pool[0].numel()
+
+    def library_call(prog, xs):
+        """One torch call computing the pattern, where there is one: a
+        binary op or mul -> add over the inputs (torch.addcmul)."""
+        body = [(st.op, st.args) for st in prog.stmts]
+        one = {"add": torch.add, "mul": torch.mul, "max": torch.maximum}
+        if len(body) == 1 and body[0][0] in one \
+                and body[0][1] == ("p0", "p1"):
+            return lambda: one[body[0][0]](xs[0], xs[1])
+        if [op for op, _ in body] == ["mul", "add"] \
+                and body[0][1] == ("p0", "p1") \
+                and body[1][1] == (prog.stmts[0].dst, "p2"):
+            return lambda: torch.addcmul(xs[2], xs[0], xs[1])
+        return None
+
+    k4_rows = []
+    for which, (label, pat) in (("largest", ranked[-1]),
+                                ("median", ranked[len(ranked) // 2])):
+        prog = pe_fused.lower_pattern(pat)
+        xs = pool[:prog.n_in]
+        fn = pe_fused.make_pe_kernel(pat)
+        ms = cuda_ms(lambda: fn(*xs), 20)
+        plain_ms = cuda_ms(lambda: pe_fused.pe_apply_plain(pat, *xs), 5)
+        lib = library_call(prog, xs)
+        lib_ms = cuda_ms(lib, 20) if lib else None
+        k4_bytes = (prog.n_in + len(prog.outs)) * 4 * numel
+        k4_ops = prog.n_compute * numel
+        k4_rows.append((which, label, prog, ms, plain_ms, lib_ms, k4_bytes,
+                        k4_ops))
+        print(f"K4 at the {which} pattern {label} ({prog.n_in} in, "
+              f"{len(prog.outs)} out, {prog.n_compute} ops, "
+              f"{[s.op for s in prog.stmts]}): {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; "
+              f"{k4_bytes} bytes", flush=True)
+
+    k5_ms = {}
+    for case in ("a", "b", "c"):
+        extras, kw = k5_cases[case]
+        k5_ms[case] = cuda_ms(lambda: matmul_fused(x5, w5, *extras, **kw),
+                              10)
+    k5_plain = cuda_ms(lambda: gemm.gemm_pe_plain(x5, w5), 10)
+    k5_lib = cuda_ms(lambda: torch.matmul(x5, w5), 10)
+    k5_ops = 2 * TOKENS * D_MODEL * D_FF
+    k5_bytes = nbytes(x5, w5) + TOKENS * D_FF * 4
+    print(f"K5 at {TOKENS}x{D_MODEL}x{D_FF}: (a) {k5_ms['a']:.4f} ms "
+          f"({k5_ops / k5_ms['a'] / 1e9:.2f} TFLOP/s), (b) "
+          f"{k5_ms['b']:.4f} ms, (c) {k5_ms['c']:.4f} ms; plain (a) "
+          f"{k5_plain:.4f} ms; torch.matmul {k5_lib:.4f} ms", flush=True)
+
+    # -- 7: the kernels line ----------------------------------------------
     def bound(b, ops):
         t_b, t_o = b / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
@@ -423,6 +658,21 @@ def main() -> int:
                         "replaces": repl, "launches": n, "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": by, "library_ms": None})
+    _, _, prog, ms, plain_ms, lib_ms, b, ops = k4_rows[0]
+    b_ms, by = bound(b, ops)
+    kernels.append({"name": "pe_kernel (K4)", "route": "triton",
+                    "source": "src/repro_torch/kernels/pe_fused.py",
+                    "replaces": "src/repro/kernels/pe_fused.py:71",
+                    "launches": launches["k4"], "max_abs_err": k4_err,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": by, "library_ms": lib_ms})
+    b_ms, by = bound(k5_bytes, k5_ops)
+    kernels.append({"name": "gemm_pe_kernel (K5)", "route": "cuda",
+                    "source": CSRC + "gemm_pe.cu",
+                    "replaces": "src/repro/kernels/gemm.py:51",
+                    "launches": launches["k5"], "max_abs_err": k5_err,
+                    "ms": k5_ms["a"], "plain_ms": k5_plain, "bound_ms": b_ms,
+                    "bound_by": by, "library_ms": k5_lib})
     print(f"K1/K2 timed at signature {'x'.join(map(str, sig))} "
           f"(R={r_n} chains, E={e_n}, N={n_n}, D={d_n}); K2 work {work}; "
           f"K3 work {k3_ops} ALU operations, {k3_bytes} bytes")

@@ -21,9 +21,12 @@ def test_import_leaves_jax_and_repro_out():
             "import repro_torch.kernels, repro_torch.explore.__main__\n"
             "import repro_torch.fabric.prng, repro_torch.obs\n"
             "import repro_torch.sim, repro_torch.kernels.sim_step\n"
+            "import repro_torch.kernels.pe_fused, repro_torch.kernels.gemm\n"
+            "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
-            "or m.startswith('repro.'))))\n")
+            "or m.startswith('repro.') or m == 'triton' "
+            "or m.startswith('triton.'))))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
@@ -61,6 +64,31 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
             call()
     # asking for the CPU explicitly runs the plain versions
     assert place(nl, spec, chains=2, sweeps=1, device="cpu").backend == "jax"
+
+
+def test_fused_pe_entry_points_need_a_card_by_default(monkeypatch):
+    import numpy as np
+    from repro_torch.core.merge import baseline_datapath
+    from repro_torch.graphir import pattern_from_spec
+    from repro_torch.kernels import (fused_pe_apply, gemm_pe,
+                                     kernel_from_config, make_pe_kernel,
+                                     matmul_fused)
+
+    _no_card(monkeypatch)
+    pat = pattern_from_spec([("mul", (-1, -1)), ("add", (0, -1))])
+    x = np.ones((4, 4), np.float32)
+    dp = baseline_datapath({"add"})
+    for call in (lambda: fused_pe_apply(pat, x, x, x),
+                 lambda: make_pe_kernel(pat),
+                 lambda: kernel_from_config(dp, "op:add"),
+                 lambda: matmul_fused(x, x),
+                 lambda: gemm_pe(x, x)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # asking for the CPU explicitly runs the plain versions
+    assert fused_pe_apply(pat, x, x, x, device="cpu").tolist() == \
+        [[2.0] * 4] * 4
+    assert matmul_fused(x, x, device="cpu").tolist() == [[4.0] * 4] * 4
 
 
 def test_place_and_route_needs_a_card_by_default(monkeypatch):

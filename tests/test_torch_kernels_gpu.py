@@ -7,6 +7,11 @@ reason when none does.  Tolerance: bit equality — the placement kernels
 do the plain versions' integer-valued float32 arithmetic, and the cycle
 stepper (K3) every IEEE-exact ALU op (NaNs count as equal); its
 transcendentals (exp, log, tanh, sigmoid, rsqrt, pow) are held to 2 ulp.
+The generated fused-PE kernel (K4) is held to its plain version at
+rtol = atol = 1e-5 in float32 and 5e-2 in bfloat16, and the matmul with a
+PE epilogue (K5) at |diff| <= 1e-4 * max(1, |plain|) (float32 sums in
+another order; TF32 off), its bfloat16 results within one bfloat16
+rounding step.
 """
 
 from collections import defaultdict
@@ -224,3 +229,171 @@ def test_k3_rejects_bad_inputs():
     bad["op_src"][0, 0, 0, 0] = sig[5] + sig[6] + sig[1]   # tile 1's tmp
     with pytest.raises(ValueError, match="tmp slot"):
         sim_step.simulate_batch_stepper(bad, inputs, op_ids, **kw)
+
+
+# ---------------------------------------------------------------------------
+# K4: the generated fused-PE kernel; K5: the matmul with a PE epilogue
+# ---------------------------------------------------------------------------
+PE_SPECS = {
+    "muladd": [("mul", (-1, -1)), ("add", (0, -1))],
+    "conv_relu": [("mul", (-1, -1)), ("add", (0, -1)), ("const", ()),
+                  ("max", (1, 2))],
+    "harris_resp": [("mul", (-1, -1)), ("mul", (-1, -1)), ("sub", (0, 1)),
+                    ("abs", (2,))],
+    "swiglu_core": [("sigmoid", (-1,)), ("mul", (0, -1)), ("mul", (1, -1))],
+    "two_sinks": [("lt", (-1, -1)), ("add", (0, -1)), ("sel", (0, -1, -1)),
+                  ("mul", (1, -1))],
+    "bool_arith": [("lt", (-1, -1)), ("gt", (-1, -1)), ("add", (0, 1)),
+                   ("mac", (0, 1, -1)), ("and", (2, 3)), ("not", (4,))],
+}
+
+
+def _pe_cases():
+    from repro_torch.graphir import pattern_from_spec
+    from repro_torch.kernels.pe_fused import _TORCH_SEMANTICS
+    cases = {name: pattern_from_spec(s) for name, s in PE_SPECS.items()}
+    for op in _TORCH_SEMANTICS:
+        cases[f"op_{op}"] = pattern_from_spec([(op, (-1,) * OPS[op].arity)])
+    inf = pattern_from_spec([("add", (-1, -1)), ("const", ()),
+                             ("min", (0, 1))])
+    inf.attrs[1]["value"] = float("-inf")
+    cases["neg_inf_const"] = inf
+    return cases
+
+
+def _close(got, want, tol):
+    got, want = got.double(), want.double()
+    ok = torch.isclose(got, want, rtol=tol, atol=tol, equal_nan=True)
+    return bool(ok.all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_matches_plain(dtype):
+    _need_card()
+    from repro_torch.graphir.graph import free_in_ports
+    from repro_torch.kernels import make_pe_kernel
+    from repro_torch.kernels.pe_fused import pe_apply, pe_apply_plain
+    dt = getattr(torch, dtype)
+    tol = 1e-5 if dtype == "float32" else 5e-2
+    rng = np.random.default_rng(2)
+    for name, pat in _pe_cases().items():
+        n_in = len(free_in_ports(pat))
+        for shape in ((33, 77), (1000, 1000)):
+            xs = [torch.as_tensor(_operands(rng, shape)).to(dt).cuda()
+                  for _ in range(n_in)]
+            before = pe_apply.launches
+            got = make_pe_kernel(pat)(*xs)
+            assert pe_apply.launches == before + 1
+            want = pe_apply_plain(pat, *xs)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            for g, w in zip(got, want):
+                assert g.device.type == "cuda" and g.dtype == dt
+                assert _close(g, w, tol), (name, shape, dtype)
+
+
+def test_k4_refuses_like_reference():
+    _need_card()
+    from repro_torch.graphir import pattern_from_spec
+    from repro_torch.kernels import make_pe_kernel
+    with pytest.raises(ValueError, match="no free in-ports"):
+        make_pe_kernel(pattern_from_spec([("const", ())]))
+    fn = make_pe_kernel(pattern_from_spec([("mul", (-1, -1))]))
+    x = torch.ones(4, 4, device="cuda")
+    with pytest.raises(TypeError, match="expected 2 inputs"):
+        fn(x)
+    with pytest.raises(TypeError, match="sub does not accept dtype bool"):
+        make_pe_kernel(pattern_from_spec([
+            ("lt", (-1, -1)), ("gt", (-1, -1)), ("sub", (0, 1))]))(
+                x, x, x, x)
+
+
+GEMM_EPILOGUES = {
+    "none": (None, ()),
+    "bias_relu": ([("add", (-1, -1)), ("const", ()), ("max", (0, 1))],
+                  ("vec",)),
+    "residual": ([("add", (-1, -1))], ("full",)),
+    "scale_shift_gelu": ([("mul", (-1, -1)), ("add", (0, -1)),
+                          ("erf", (1,)), ("mul", (2, -1))],
+                         ("vec", "vec", "full")),
+    "bool_mix": ([("lt", (-1, -1)), ("sel", (0, -1, -1)),
+                  ("add", (0, 1))], ("full", "vec", "full")),
+}
+
+
+def _gemm_close(got, want):
+    got, want = got.double(), want.double()
+    return bool(((got - want).abs()
+                 <= 1e-4 * want.abs().clamp(min=1.0)).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k5_matches_plain(dtype):
+    _need_card()
+    from repro_torch.graphir import pattern_from_spec
+    from repro_torch.kernels import gemm_pe
+    from repro_torch.kernels.gemm import gemm_pe_plain
+    assert not torch.backends.cuda.matmul.allow_tf32
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for m, k, n in ((64, 64, 64), (100, 70, 50), (256, 128, 192),
+                    (1000, 333, 700), (1, 5, 129)):
+        x = torch.randn(m, k, device=dev, generator=g).to(dt)
+        w = (torch.randn(k, n, device=dev, generator=g) / k ** 0.5).to(dt)
+        for name, (spec, kinds) in GEMM_EPILOGUES.items():
+            epi = None if spec is None else pattern_from_spec(spec)
+            extras = [torch.randn((n,) if kd == "vec" else (m, n),
+                                  device=dev, generator=g) for kd in kinds]
+            kw = dict(epilogue=epi, extra_kinds=kinds)
+            before = gemm_pe.launches
+            got = gemm_pe(x, w, *extras, out_dtype=torch.float32, **kw)
+            assert gemm_pe.launches == before + 1
+            want = gemm_pe_plain(x, w, *extras, out_dtype=torch.float32,
+                                 **kw)
+            torch.cuda.synchronize()
+            assert got.shape == (m, n)
+            assert _gemm_close(got, want), (name, m, k, n, dtype)
+            low = gemm_pe(x, w, *extras, out_dtype=torch.bfloat16, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(low, got.to(torch.bfloat16)), (name, m, k, n)
+
+
+def test_k5_every_epilogue_op_matches_plain():
+    _need_card()
+    from repro_torch.graphir import pattern_from_spec
+    from repro_torch.kernels import gemm_pe
+    from repro_torch.kernels.gemm import EPI_OPCODES, gemm_pe_plain
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4)
+    m, k, n = 96, 40, 160
+    # small integers: the product is exact in any order, so the epilogue
+    # sees the same accumulator in both versions
+    x = torch.as_tensor(rng.integers(-3, 4, (m, k)), dtype=torch.float32,
+                        device=dev)
+    w = torch.as_tensor(rng.integers(-3, 4, (k, n)), dtype=torch.float32,
+                        device=dev)
+    for op in EPI_OPCODES:
+        arity = OPS[op].arity
+        pat = pattern_from_spec([(op, (-1,) * arity)])
+        kinds = ("full", "vec")[:arity - 1]
+        extras = [torch.as_tensor(_operands(rng, (m, n) if kd == "full"
+                                            else (n,)), device=dev)
+                  for kd in kinds]
+        got = gemm_pe(x, w, *extras, epilogue=pat, extra_kinds=kinds)
+        want = gemm_pe_plain(x, w, *extras, epilogue=pat, extra_kinds=kinds)
+        torch.cuda.synchronize()
+        assert _close(got, want, 1e-5), op
+
+
+def test_k5_rejects_bad_inputs():
+    _need_card()
+    from repro_torch.graphir import pattern_from_spec
+    from repro_torch.kernels import gemm_pe
+    x = torch.ones(8, 6, device="cuda")
+    with pytest.raises(ValueError, match="inner dimensions"):
+        gemm_pe(x, torch.ones(5, 4, device="cuda"))
+    with pytest.raises(ValueError, match="takes 1 extra"):
+        gemm_pe(x, torch.ones(6, 4, device="cuda"),
+                epilogue=pattern_from_spec([("add", (-1, -1))]))
