@@ -50,8 +50,20 @@ version:
    both against the float64 oracles on small inputs, and time K4 at the
    largest and the median distinct pattern and K5 on the first three
    epilogues;
-7. print one JSON line ``{"kernels": [...]}`` with launches, max |diff|,
-   times and bounds of K1-K5, then ``{"ok": true, "device": {...}}`` as
+7. the attention and selective-scan boundary at the widths of three
+   configurations the repository carries: with the launch counters set to
+   0 just before and read just after, ``attention`` (K6) at Llama 3.2 1B
+   (32 query heads, 8 kv heads, head dim 64, 4096 tokens, causal; (a) in
+   float32, (c) in bfloat16), at a Gemma 2 27B local layer (32 / 16
+   heads, head dim 128, 8192 tokens, causal, window 4096, softcap 50,
+   scale 1/12; (b)) and non-causal at a ragged 4000 tokens (d), and
+   ``selective_scan`` (K7) at falcon-mamba-7b (d_inner 8192, d_state 16,
+   4096 tokens) and at a ragged S=100, D=50; hold each result against its
+   plain version on the card and K6 against the float64 oracle
+   ``ref_attention`` (on query heads 0-1 for (b)); time each kernel, its
+   plain version and, for (a), ``scaled_dot_product_attention``;
+8. print one JSON line ``{"kernels": [...]}`` with launches, max |diff|,
+   times and bounds of K1-K7, then ``{"ok": true, "device": {...}}`` as
    the last line.
 
 Any failure exits nonzero; no phase catches an error and carries on
@@ -81,6 +93,23 @@ BIG_BATCH, BIG_ITERS = 256, 16
 #: and d_ff, at 4096 tokens
 TOKENS, D_MODEL, D_FF = 4096, 2048, 8192
 K4_TOL, K4_BF16_TOL, K5_TOL = 1e-5, 5e-2, 1e-4
+#: phase 7: (B, Hq, Hkv, D, S, options, dtype) of each K6 case —
+#: (a) src/repro/configs/llama3_2_1b.py (32 heads, kv 8, head_dim 64) at
+#: 4096 tokens, (b) a local layer of src/repro/configs/gemma2_27b.py
+#: (32 heads, kv 16, head_dim 128, window 4096, softcap 50, scale 1/12)
+#: at its max_seq_len 8192, (c) = (a) in bfloat16, (d) non-causal at a
+#: sequence length that is not a multiple of the tile
+K6_CASES = {
+    "a": (1, 32, 8, 64, 4096, dict(causal=True), "float32"),
+    "b": (1, 32, 16, 128, 8192, dict(causal=True, window=4096, softcap=50.0,
+                                     scale=1.0 / 12), "float32"),
+    "c": (1, 32, 8, 64, 4096, dict(causal=True), "bfloat16"),
+    "d": (1, 8, 2, 64, 4000, dict(causal=False), "float32"),
+}
+#: K7 at src/repro/configs/falcon_mamba_7b.py (d_model 4096, expand 2,
+#: d_state 16) at 4096 tokens, and a ragged (S, D)
+K7_SHAPE, K7_RAGGED = (1, 4096, 8192, 16), (1, 100, 50, 16)
+K6_TOL, K6_BF16_TOL, K7_TOL = 2e-5, 5e-2, 1e-4
 
 
 def fail(msg: str) -> None:
@@ -123,6 +152,152 @@ def same_bits(a, b) -> bool:
     return bool(eq.all())
 
 
+def attention_scan_phase(dev, launches: dict) -> dict:
+    """Phase 7: K6 and K7 at model widths through ``attention`` and
+    ``selective_scan``, counted, checked and timed; sets ``launches["k6"]``
+    and ``launches["k7"]`` and returns the numbers of the kernels line."""
+    import torch
+    from repro_torch.kernels import (attention, flash_attention, mamba_scan,
+                                     selective_scan)
+    from repro_torch.kernels.flash_attention import attention_plain
+    from repro_torch.kernels.mamba_scan import mamba_scan_plain
+    from repro_torch.kernels.ref import ref_attention, ref_mamba_scan
+
+    phase("7 attention (K6) and selective scan (K7) at model widths")
+    gen7 = torch.Generator(device=dev).manual_seed(16)
+    k6_in = {}
+    for case, (b_, hq, hkv, hd, s_, kw, dt) in K6_CASES.items():
+        if case == "c":                     # (a)'s inputs, rounded
+            k6_in[case] = [t.to(torch.bfloat16) for t in k6_in["a"]]
+            continue
+        k6_in[case] = [torch.randn((b_, h, s_, hd), generator=gen7,
+                                   device=dev) for h in (hq, hkv, hkv)]
+
+    def scan_inputs(shape):
+        # tests/test_kernels.py: a ~ U(0.6, 0.999), bx ~ N(0, 0.1^2),
+        # c ~ N(0, 1)
+        b_, s_, d_, n_ = shape
+        a = torch.rand(shape, generator=gen7, device=dev) * 0.399 + 0.6
+        bx = torch.randn(shape, generator=gen7, device=dev) * 0.1
+        c = torch.randn((b_, s_, n_), generator=gen7, device=dev)
+        return a, bx, c
+
+    k7_in = scan_inputs(K7_SHAPE)
+    k7r_in = scan_inputs(K7_RAGGED)
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    mamba_scan.launches = 0
+    k6_out = {case: attention(*k6_in[case], **K6_CASES[case][5])
+              for case in K6_CASES}
+    k7_out = selective_scan(*k7_in)
+    k7r_out = selective_scan(*k7r_in)
+    torch.cuda.synchronize()
+    launches["k6"] = flash_attention.launches
+    launches["k7"] = mamba_scan.launches
+    print(f"launches {{'k6': {launches['k6']}, 'k7': {launches['k7']}}}",
+          flush=True)
+    if launches["k6"] != len(K6_CASES) or launches["k7"] != 2:
+        fail(f"K6 launched {launches['k6']} times for {len(K6_CASES)} "
+             f"cases, K7 {launches['k7']} times for 2")
+
+    def check(name, got, want, tol):
+        """max |got - want|; fails unless |got - want| <= tol * (1 +
+        |want|) everywhere and got is finite."""
+        d = (got.double() - want.double()).abs()
+        ok = bool((d <= tol * (1 + want.double().abs())).all()) \
+            and bool(torch.isfinite(got).all())
+        err = float(d.max())
+        if not ok:
+            fail(f"{name}: max |diff| {err} above {tol}")
+        return err
+
+    k6_err = 0.0
+    for case, (b_, hq, hkv, hd, s_, kw, dt) in K6_CASES.items():
+        q, k, v = k6_in[case]
+        got = k6_out[case]
+        if got.shape != q.shape or got.dtype != getattr(torch, dt):
+            fail(f"K6 ({case}) returned {got.dtype} {tuple(got.shape)}")
+        tol = K6_BF16_TOL if dt == "bfloat16" else K6_TOL
+        err = check(f"K6 ({case}) vs its plain version", got,
+                    attention_plain(q, k, v, **kw), tol)
+        if dt == "float32":
+            k6_err = max(k6_err, err)
+        # the float64 oracle: every head, one kv head at a time; for (b)
+        # (S x S in float64 at 8192 tokens) query heads 0-1 only
+        group = hq // hkv
+        kv_heads = range(1) if case == "b" else range(hkv)
+        oracle_err = 0.0
+        if dt == "float32":
+            for g in kv_heads:
+                hs = slice(g * group, (g + 1) * group)
+                want = ref_attention(q[:, hs].double(),
+                                     k[:, g:g + 1].double(),
+                                     v[:, g:g + 1].double(), **kw)
+                oracle_err = max(oracle_err, check(
+                    f"K6 ({case}) vs the float64 oracle", got[:, hs], want,
+                    K6_TOL))
+        print(f"K6 ({case}) B={b_} Hq={hq} Hkv={hkv} D={hd} S={s_} {kw} "
+              f"{dt}: == plain at {tol} (max |diff| {err}); float64 oracle "
+              f"max |diff| {oracle_err if dt == 'float32' else 'n/a'} on "
+              f"{len(kv_heads) * group if dt == 'float32' else 0} heads",
+              flush=True)
+    k7_err = check("K7 vs its plain version", k7_out,
+                   mamba_scan_plain(*k7_in), K7_TOL)
+    k7r_err = check("K7 (ragged) vs its plain version", k7r_out,
+                    mamba_scan_plain(*k7r_in), K7_TOL)
+    check("K7 (ragged) vs the float64 oracle", k7r_out,
+          ref_mamba_scan(*[t.double() for t in k7r_in]), K7_TOL)
+    if k7_out.shape != K7_SHAPE[:3] or k7_out.dtype != torch.float32:
+        fail(f"K7 returned {k7_out.dtype} {tuple(k7_out.shape)}")
+    print(f"K7 at {K7_SHAPE}: == plain at {K7_TOL} (max |diff| {k7_err}); "
+          f"at {K7_RAGGED}: == plain (max |diff| {k7r_err}) and the float64 "
+          f"oracle", flush=True)
+
+    # times, bounds and the one-call yardstick
+    def attn_pairs(s_, causal, window):
+        """(q, k) pairs inside the masks: the work this run's data needs."""
+        qp = torch.arange(s_, dtype=torch.int64)
+        hi = qp if causal else torch.full_like(qp, s_ - 1)
+        lo = (qp - window + 1).clamp(min=0) if window > 0 \
+            else torch.zeros_like(qp)
+        return int((hi - lo + 1).clamp(min=0).sum())
+
+    k6_rows = {}
+    for case, (b_, hq, hkv, hd, s_, kw, dt) in K6_CASES.items():
+        q, k, v = k6_in[case]
+        reps = 3 if case == "b" else 10
+        ms = cuda_ms(lambda: attention(q, k, v, **kw), reps)
+        plain_ms = cuda_ms(lambda: attention_plain(q, k, v, **kw), 2)
+        lib_ms = None
+        if case == "a":
+            from torch.nn.functional import scaled_dot_product_attention
+            lib_ms = cuda_ms(lambda: scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), reps)
+            lib_err = float((scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+                - k6_out["a"]).abs().max())
+        pairs = b_ * hq * attn_pairs(s_, kw["causal"], kw.get("window", 0))
+        ops = 4 * hd * pairs
+        byts = nbytes(q, k, v, k6_out[case])
+        k6_rows[case] = (ms, plain_ms, lib_ms, byts, ops)
+        print(f"K6 ({case}): {ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s over "
+              f"{pairs} unmasked pairs), plain {plain_ms:.4f} ms, library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; "
+              f"{byts} bytes, {ops} operations", flush=True)
+    print(f"scaled_dot_product_attention (a) max |diff| from K6 {lib_err}")
+    k7_ms = cuda_ms(lambda: selective_scan(*k7_in), 10)
+    k7_plain = cuda_ms(lambda: mamba_scan_plain(*k7_in), 1)
+    k7_bytes = nbytes(*k7_in, k7_out)
+    k7_ops = 4 * k7_in[0].numel()       # a*h, + bx, * c, + into y per state
+    print(f"K7 at {K7_SHAPE}: {k7_ms:.4f} ms "
+          f"({k7_bytes / k7_ms / 1e9:.3f} TB/s), plain {k7_plain:.4f} ms, "
+          f"library none; {k7_bytes} bytes, {k7_ops} operations", flush=True)
+    return {"k6_rows": k6_rows, "k6_err": k6_err, "k7_ms": k7_ms,
+            "k7_plain": k7_plain, "k7_bytes": k7_bytes, "k7_ops": k7_ops,
+            "k7_err": k7_err}
+
+
+
 def main() -> int:
     import torch
 
@@ -144,6 +319,8 @@ def main() -> int:
         from repro_torch.kernels import (build, gemm, kernel_from_config,
                                          matmul_fused, pe_fused, pnr_cost,
                                          sim_step)
+        from repro_torch.kernels.flash_attention import _lib as attention_lib
+        from repro_torch.kernels.mamba_scan import _lib as scan_lib
         from repro_torch.kernels.ref import ref_gemm_pe, ref_pe
         from repro_torch.obs import disable_tracing, enable_tracing
         from repro_torch.sim import random_inputs, sim_signature
@@ -182,6 +359,8 @@ def main() -> int:
     pnr_cost._lib()                     # load and type the libraries
     sim_step._lib()
     gemm._lib()
+    attention_lib()
+    scan_lib()
 
     # -- 3: front half + kernels vs plain on every signature -------------
     phase("3 front half, kernels vs plain versions")
@@ -637,7 +816,10 @@ def main() -> int:
           f"{k5_ms['b']:.4f} ms, (c) {k5_ms['c']:.4f} ms; plain (a) "
           f"{k5_plain:.4f} ms; torch.matmul {k5_lib:.4f} ms", flush=True)
 
-    # -- 7: the kernels line ----------------------------------------------
+    # -- 7: the attention / selective-scan boundary at model widths -------
+    p7 = attention_scan_phase(dev, launches)
+
+    # -- 8: the kernels line ----------------------------------------------
     def bound(b, ops):
         t_b, t_o = b / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
@@ -673,6 +855,32 @@ def main() -> int:
                     "launches": launches["k5"], "max_abs_err": k5_err,
                     "ms": k5_ms["a"], "plain_ms": k5_plain, "bound_ms": b_ms,
                     "bound_by": by, "library_ms": k5_lib})
+    k6_rows = p7["k6_rows"]
+    k7_ms, k7_plain = p7["k7_ms"], p7["k7_plain"]
+    k7_bytes, k7_ops = p7["k7_bytes"], p7["k7_ops"]
+    ms, plain_ms, lib_ms, b, ops = k6_rows["a"]
+    b_ms, by = bound(b, ops)
+    kernels.append({"name": "flash_attention_kernel (K6)", "route": "cuda",
+                    "source": CSRC + "flash_attention.cu",
+                    "replaces": "src/repro/kernels/flash_attention.py:29",
+                    "launches": launches["k6"], "max_abs_err": p7["k6_err"],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": by, "library_ms": lib_ms})
+    b_ms, by = bound(k7_bytes, k7_ops)
+    kernels.append({"name": "mamba_scan_kernel (K7)", "route": "cuda",
+                    "source": CSRC + "mamba_scan.cu",
+                    "replaces": "src/repro/kernels/mamba_scan.py:24",
+                    "launches": launches["k7"], "max_abs_err": p7["k7_err"],
+                    "ms": k7_ms, "plain_ms": k7_plain, "bound_ms": b_ms,
+                    "bound_by": by, "library_ms": None})
+    for case, (ms, plain_ms, lib_ms, b, ops) in k6_rows.items():
+        b_ms, by = bound(b, ops)
+        print(f"K6 ({case}): {ms:.4f} ms against a bound of {b_ms:.4f} ms "
+              f"({by}), plain {plain_ms:.4f} ms, library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    b_ms, by = bound(k7_bytes, k7_ops)
+    print(f"K7: {k7_ms:.4f} ms against a bound of {b_ms:.4f} ms ({by}), "
+          f"plain {k7_plain:.4f} ms, library none")
     print(f"K1/K2 timed at signature {'x'.join(map(str, sig))} "
           f"(R={r_n} chains, E={e_n}, N={n_n}, D={d_n}); K2 work {work}; "
           f"K3 work {k3_ops} ALU operations, {k3_bytes} bytes")

@@ -8,20 +8,27 @@
   generated per pattern;
 * :mod:`.gemm` — the matmul with a fused PE epilogue (K5), CUDA C++ in
   ``csrc/gemm_pe.cu``;
-* :mod:`.ops` — ``fused_pe_apply`` and ``matmul_fused``; :mod:`.ref` —
-  their float64 oracles;
+* :mod:`.flash_attention` — flash attention (K6), CUDA C++ in
+  ``csrc/flash_attention.cu``;
+* :mod:`.mamba_scan` — the selective scan (K7), CUDA C++ in
+  ``csrc/mamba_scan.cu``;
+* :mod:`.ops` — ``fused_pe_apply``, ``attention``, ``selective_scan`` and
+  ``matmul_fused``; :mod:`.ref` — their oracles;
 * :mod:`.build` — ``nvcc`` build and ``ctypes`` loading on first use.
 
 Importing this package builds nothing, imports no ``triton`` and needs no
 card.
 """
 
+from .flash_attention import flash_attention
 from .gemm import gemm_pe
-from .ops import fused_pe_apply, matmul_fused
+from .mamba_scan import mamba_scan
+from .ops import attention, fused_pe_apply, matmul_fused, selective_scan
 from .pe_fused import kernel_from_config, make_pe_kernel
 from .pnr_cost import anneal_chains, net_hpwl_rows
 from .sim_step import simulate_batch_stepper
 
 __all__ = ["anneal_chains", "net_hpwl_rows", "simulate_batch_stepper",
            "fused_pe_apply", "matmul_fused", "make_pe_kernel",
-           "kernel_from_config", "gemm_pe"]
+           "kernel_from_config", "gemm_pe", "attention", "selective_scan",
+           "flash_attention", "mamba_scan"]

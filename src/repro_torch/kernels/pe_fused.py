@@ -63,7 +63,7 @@ from ..device import resolve_device
 from ..graphir.graph import Graph, free_in_ports, sink_nodes
 from ..graphir.ops import OPS
 
-__all__ = ["PEProgram", "lower_pattern", "make_pe_kernel",
+__all__ = ["PEProgram", "block_size", "lower_pattern", "make_pe_kernel",
            "kernel_from_config", "pe_apply", "pe_apply_plain"]
 
 
@@ -454,18 +454,36 @@ def _triton_kernel(prog: PEProgram) -> Callable:
         return fn
 
 
-def pe_apply(pattern, *inputs: torch.Tensor, block: int = 1024):
+#: K4's elements per program when the caller names none
+DEFAULT_BLOCK = 1024
+
+
+def block_size(block) -> int:
+    """K4's elements per program for ``block``: an int is taken as it is;
+    the reference's ``(bm, bn)`` tile is a TPU VMEM tiling, accepted as a
+    hint that changes no result and mapped to :data:`DEFAULT_BLOCK`."""
+    if isinstance(block, (tuple, list)):
+        if len(block) != 2 or any(int(b) <= 0 for b in block):
+            raise ValueError(f"block must be an int or a (bm, bn) pair of "
+                             f"positive ints, got {block!r}")
+        return DEFAULT_BLOCK
+    return int(block)
+
+
+def pe_apply(pattern, *inputs: torch.Tensor, block=DEFAULT_BLOCK):
     """Apply a PE pattern elementwise: one input per free in-port, all of
     one shape and device; one output per sink, of the first input's shape
     and dtype (a tuple when there are several sinks).
 
     Kernel K4 for CUDA tensors (one launch, counted in
     ``pe_apply.launches``; ``block`` elements per program, a power of
-    two); the plain version for CPU tensors.  A Triton failure raises.
+    two, or the reference's ``(bm, bn)`` tile, see :func:`block_size`);
+    the plain version for CPU tensors.  A Triton failure raises.
     """
     prog = _as_program(pattern)
     xs = _prepare(prog, inputs)
     x0 = xs[0]
+    block = block_size(block)
     if x0.device.type != "cuda":
         return pe_apply_plain(prog, *xs)
     if block <= 0 or block & (block - 1):
@@ -487,7 +505,7 @@ def pe_apply(pattern, *inputs: torch.Tensor, block: int = 1024):
 pe_apply.launches = 0
 
 
-def make_pe_kernel(pattern: Graph, *, block: int = 1024,
+def make_pe_kernel(pattern: Graph, *, block=DEFAULT_BLOCK,
                    device="cuda") -> Callable:
     """Compile a mined/merged PE pattern into a fused elementwise kernel.
 
@@ -496,10 +514,12 @@ def make_pe_kernel(pattern: Graph, *, block: int = 1024,
     card (the default; raises without one), the plain version on
     ``device="cpu"``.  Raises ``ValueError`` for a pattern without free
     in-ports or with an unsupported op; ``f`` raises ``TypeError`` for a
-    wrong number of inputs.
+    wrong number of inputs.  ``block`` is K4's elements per program or
+    the reference's ``(bm, bn)`` tile (:func:`block_size`).
     """
     dev = resolve_device(device)
     prog = lower_pattern(pattern)
+    block = block_size(block)
 
     def run(*inputs):
         return pe_apply(prog, *[torch.as_tensor(x, device=dev)

@@ -1,10 +1,13 @@
-"""Oracles for the fused-PE kernels: graph interpretation in float64
-numpy (copies of the JAX package's ``kernels/ref.py`` over this package's
-own interpreter).  The attention and selective-scan oracles wait for
-their kernels."""
+"""Oracles for the ML kernels, copies of the JAX package's
+``kernels/ref.py``: graph interpretation in float64 numpy over this
+package's own interpreter (fused PE, GEMM epilogue), the direct softmax
+over the full score matrix (attention) and the plain sequential
+recurrence (selective scan).  The last two compute in float64 when given
+float64 and in float32 otherwise."""
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -13,7 +16,7 @@ import torch
 from ..graphir.graph import Graph, free_in_ports, sink_nodes
 from ..graphir.interp import interpret_pattern
 
-__all__ = ["ref_pe", "ref_gemm_pe"]
+__all__ = ["ref_pe", "ref_gemm_pe", "ref_attention", "ref_mamba_scan"]
 
 
 def _f64(x) -> np.ndarray:
@@ -49,3 +52,50 @@ def ref_gemm_pe(x, w, *extras, epilogue=None, extra_kinds=(),
         acc = torch.as_tensor(np.broadcast_to(
             vals[sink_nodes(epilogue)[0]], tuple(acc.shape)).copy())
     return acc.to(out_dtype or x.dtype)
+
+
+def _compute_dtype(x: torch.Tensor) -> torch.dtype:
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def ref_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                  scale=0.0) -> torch.Tensor:
+    """Oracle for flash_attention: direct softmax over the full score
+    matrix.  q (B,Hq,S,D); k/v (B,Hkv,S,D); returns (B,Hq,S,D) in q's
+    dtype."""
+    q, k, v = (torch.as_tensor(t) for t in (q, k, v))
+    ct = _compute_dtype(q)
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    scale = scale or 1.0 / math.sqrt(d)
+    k = k.repeat_interleave(group, dim=1)
+    v = v.repeat_interleave(group, dim=1)
+    sarr = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), k.to(ct)) * scale
+    if softcap:
+        sarr = softcap * torch.tanh(sarr / softcap)
+    q_pos = torch.arange(s, device=q.device)[:, None]
+    k_pos = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window:
+        mask = mask & (k_pos > q_pos - window)
+    sarr = torch.where(mask[None, None], sarr,
+                       torch.tensor(-1e30, dtype=ct, device=q.device))
+    p = torch.softmax(sarr, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.to(ct)).to(q.dtype)
+
+
+def ref_mamba_scan(a, bx, c) -> torch.Tensor:
+    """Oracle for mamba_scan: the plain sequential recurrence
+    ``h_t = a_t * h_{t-1} + bx_t``, ``y_t = sum_n h_t * c_t``.  a/bx
+    (B,S,D,N), c (B,S,N); returns y (B,S,D)."""
+    a, bx, c = (torch.as_tensor(t) for t in (a, bx, c))
+    ct = _compute_dtype(a)
+    b, s, d, n = a.shape
+    h = torch.zeros((b, d, n), dtype=ct, device=a.device)
+    ys = []
+    for t in range(s):
+        h = a[:, t].to(ct) * h + bx[:, t].to(ct)
+        ys.append(torch.sum(h * c[:, t].to(ct)[:, None, :], dim=-1))
+    return torch.stack(ys, dim=1)

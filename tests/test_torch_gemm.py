@@ -257,3 +257,16 @@ def test_checks_match_reference():
     big = t_spec([("add", (-1, -1))] + [("add", (i, -1)) for i in range(40)])
     with pytest.raises(ValueError, match="too large"):
         encode_epilogue(big)
+
+
+@pytest.mark.parametrize("block", [32, 64, 128])
+def test_reference_tile_keywords_change_no_result(block):
+    # the reference's bm/bn/bk are accepted: K5 masks ragged edges itself
+    rpat, tpat, kinds = _pats("bias_relu")
+    x, w, extras = _operands(100, 70, 50, kinds, seed=block)
+    kw = dict(epilogue=tpat, extra_kinds=kinds, device="cpu")
+    want = t_matmul(x, w, *extras, **kw)
+    got = t_matmul(x, w, *extras, bm=block, bn=block, bk=block, **kw)
+    assert torch.equal(got, want)
+    assert torch.equal(t_matmul(x, w, bm=64, bn=64, bk=64, device="cpu"),
+                       t_matmul(x, w, device="cpu"))

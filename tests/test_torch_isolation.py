@@ -23,6 +23,8 @@ def test_import_leaves_jax_and_repro_out():
             "import repro_torch.sim, repro_torch.kernels.sim_step\n"
             "import repro_torch.kernels.pe_fused, repro_torch.kernels.gemm\n"
             "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
+            "import repro_torch.kernels.flash_attention\n"
+            "import repro_torch.kernels.mamba_scan\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
             "or m.startswith('repro.') or m == 'triton' "
@@ -70,25 +72,37 @@ def test_fused_pe_entry_points_need_a_card_by_default(monkeypatch):
     import numpy as np
     from repro_torch.core.merge import baseline_datapath
     from repro_torch.graphir import pattern_from_spec
-    from repro_torch.kernels import (fused_pe_apply, gemm_pe,
+    from repro_torch.kernels import (attention, flash_attention,
+                                     fused_pe_apply, gemm_pe,
                                      kernel_from_config, make_pe_kernel,
-                                     matmul_fused)
+                                     mamba_scan, matmul_fused,
+                                     selective_scan)
 
     _no_card(monkeypatch)
     pat = pattern_from_spec([("mul", (-1, -1)), ("add", (0, -1))])
     x = np.ones((4, 4), np.float32)
     dp = baseline_datapath({"add"})
+    q = np.ones((1, 2, 3, 4), np.float32)        # (B, H, S, D)
+    a = np.full((1, 2, 3, 2), 0.5, np.float32)  # (B, S, D, N)
+    c = np.ones((1, 2, 2), np.float32)          # (B, S, N)
     for call in (lambda: fused_pe_apply(pat, x, x, x),
                  lambda: make_pe_kernel(pat),
                  lambda: kernel_from_config(dp, "op:add"),
                  lambda: matmul_fused(x, x),
-                 lambda: gemm_pe(x, x)):
+                 lambda: gemm_pe(x, x),
+                 lambda: attention(q, q, q),
+                 lambda: flash_attention(q, q, q),
+                 lambda: selective_scan(a, a, c),
+                 lambda: mamba_scan(a, a, c)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # asking for the CPU explicitly runs the plain versions
     assert fused_pe_apply(pat, x, x, x, device="cpu").tolist() == \
         [[2.0] * 4] * 4
     assert matmul_fused(x, x, device="cpu").tolist() == [[4.0] * 4] * 4
+    assert attention(q, q, q, device="cpu").tolist() == q.tolist()
+    assert selective_scan(a, a, c, device="cpu").tolist() == \
+        [[[1.0] * 3, [1.5] * 3]]
 
 
 def test_place_and_route_needs_a_card_by_default(monkeypatch):

@@ -11,7 +11,10 @@ The generated fused-PE kernel (K4) is held to its plain version at
 rtol = atol = 1e-5 in float32 and 5e-2 in bfloat16, and the matmul with a
 PE epilogue (K5) at |diff| <= 1e-4 * max(1, |plain|) (float32 sums in
 another order; TF32 off), its bfloat16 results within one bfloat16
-rounding step.
+rounding step.  Flash attention (K6) is held to its plain version and to
+the float64 oracle at rtol = atol = 2e-5 (5e-2 in bfloat16), the
+selective scan (K7) to its plain version at 1e-4: the reference tests'
+tolerances, for float32 sums taken in another order.
 """
 
 from collections import defaultdict
@@ -397,3 +400,125 @@ def test_k5_rejects_bad_inputs():
     with pytest.raises(ValueError, match="takes 1 extra"):
         gemm_pe(x, torch.ones(6, 4, device="cuda"),
                 epilogue=pattern_from_spec([("add", (-1, -1))]))
+
+
+# ---------------------------------------------------------------------------
+# K6: flash attention; K7: the selective scan
+# ---------------------------------------------------------------------------
+def _attn_inputs(g, b, hq, hkv, s, d, dtype=torch.float32):
+    dev = torch.device("cuda")
+    return [torch.randn((b, h, s, d), device=dev, generator=g).to(dtype)
+            for h in (hq, hkv, hkv)]
+
+
+ATTN_CASES = [
+    # (B, Hq, Hkv, S, D, kwargs): the reference tests' cases, ragged S,
+    # windows with and without causal, softcap, D = 128 and odd D
+    (2, 4, 4, 128, 32, dict(causal=True)),
+    (2, 4, 2, 256, 32, dict(causal=False)),
+    (2, 8, 2, 192, 16, dict(causal=True)),
+    (1, 4, 2, 256, 32, dict(causal=True, window=48)),
+    (1, 4, 2, 256, 32, dict(causal=True, window=64, softcap=20.0)),
+    (1, 4, 2, 100, 32, dict(causal=False)),
+    (1, 4, 2, 100, 32, dict(causal=True)),
+    (1, 4, 2, 300, 64, dict(causal=False, window=70, softcap=5.0)),
+    (1, 4, 2, 513, 128, dict(causal=True, window=200, softcap=50.0,
+                             scale=1.0 / 12)),
+    (1, 2, 1, 77, 40, dict(causal=True)),
+    (1, 2, 2, 1, 8, dict(causal=False)),
+]
+
+
+@pytest.mark.parametrize("case", range(len(ATTN_CASES)))
+def test_k6_matches_plain(case):
+    _need_card()
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import attention_plain
+    from repro_torch.kernels.ref import ref_attention
+    assert not torch.backends.cuda.matmul.allow_tf32
+    b, hq, hkv, s, d, kw = ATTN_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(case)
+    q, k, v = _attn_inputs(g, b, hq, hkv, s, d)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == before + 1
+    want = attention_plain(q, k, v, **kw)
+    oracle = ref_attention(q.double(), k.double(), v.double(), **kw)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == q.dtype
+    assert torch.allclose(got, want, rtol=2e-5, atol=2e-5), case
+    assert torch.allclose(got.double(), oracle, rtol=2e-5, atol=2e-5), case
+
+
+def test_k6_bfloat16_matches_plain():
+    _need_card()
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import attention_plain
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for s, d in ((128, 32), (200, 64), (256, 128)):
+        q, k, v = _attn_inputs(g, 1, 4, 2, s, d, torch.bfloat16)
+        got = flash_attention(q, k, v, causal=True)
+        want = attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16
+        assert torch.allclose(got.float(), want.float(), rtol=5e-2,
+                              atol=5e-2), (s, d)
+
+
+def test_k6_rejects_bad_inputs():
+    _need_card()
+    from repro_torch.kernels import flash_attention
+    q, k, v = _attn_inputs(torch.Generator(device="cuda").manual_seed(0),
+                           1, 3, 2, 16, 8)
+    with pytest.raises(ValueError, match="not a multiple"):
+        flash_attention(q, k, v)
+    q, k, v = _attn_inputs(torch.Generator(device="cuda").manual_seed(0),
+                           1, 2, 2, 16, 8)
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="must be"):
+        flash_attention(q, k[:, :, :8], v)
+    big = torch.zeros((1, 1, 4, 160), device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(big, big, big)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,d,n", [(2, 64, 32, 4), (2, 96, 64, 8),
+                                     (2, 128, 128, 16), (1, 100, 50, 16),
+                                     (1, 37, 19, 5), (1, 300, 70, 40),
+                                     (1, 20, 9, 200)])
+def test_k7_matches_plain(dtype, b, s, d, n):
+    _need_card()
+    from repro_torch.kernels import mamba_scan
+    from repro_torch.kernels.mamba_scan import mamba_scan_plain
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(s + d + n)
+    a = (torch.rand((b, s, d, n), device=dev, generator=g) * 0.399
+         + 0.6).to(dt)
+    bx = (torch.randn((b, s, d, n), device=dev, generator=g) * 0.1).to(dt)
+    c = torch.randn((b, s, n), device=dev, generator=g).to(dt)
+    before = mamba_scan.launches
+    got = mamba_scan(a, bx, c)
+    assert mamba_scan.launches == before + 1
+    want = mamba_scan_plain(a, bx, c)
+    torch.cuda.synchronize()
+    assert got.shape == (b, s, d) and got.dtype == torch.float32
+    assert torch.allclose(got, want, rtol=1e-4, atol=1e-4), (b, s, d, n)
+
+
+def test_k7_rejects_bad_inputs():
+    _need_card()
+    from repro_torch.kernels import mamba_scan
+    a = torch.ones((1, 4, 3, 2), device="cuda")
+    c = torch.ones((1, 4, 2), device="cuda")
+    with pytest.raises(ValueError, match="c must be"):
+        mamba_scan(a, a, c[:, :3])
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        mamba_scan(a, a.bfloat16(), c)
+    wide = torch.ones((1, 2, 2, 600), device="cuda")
+    with pytest.raises(ValueError, match="state size"):
+        mamba_scan(wide, wide, torch.ones((1, 2, 600), device="cuda"))

@@ -317,3 +317,29 @@ def test_inf_constant_rendered_by_its_bits():
     x = torch.tensor([[1.0, -2.0, float("nan")]])
     got = pe_apply_plain(prog, x, x)
     np.testing.assert_array_equal(got.numpy(), [[2.0, -4.0, np.nan]])
+
+
+@pytest.mark.parametrize("block", [(64, 128), (8, 128), [256, 256], 256])
+def test_reference_block_keyword_changes_no_result(block):
+    # the reference's block=(bm, bn) tile is accepted as a tiling hint
+    from repro_torch.kernels.pe_fused import DEFAULT_BLOCK, block_size
+    rpat, tpat = _pair(PE_SPECS["conv_relu"])
+    xs = _inputs(len(free_in_ports(tpat)), (33, 77), seed=1)
+    want = t_apply(tpat, *xs, device="cpu")
+    assert torch.equal(t_apply(tpat, *xs, block=block, device="cpu"), want)
+    assert torch.equal(make_pe_kernel(tpat, block=block, device="cpu")(*xs),
+                       want)
+    dp = t_base({"add", "mul"})
+    got = t_from_config(dp, "op:mul", block=block, device="cpu")(*xs[:2])
+    assert torch.equal(got, t_from_config(dp, "op:mul", device="cpu")(
+        *xs[:2]))
+    assert block_size(block) == (block if isinstance(block, int)
+                                 else DEFAULT_BLOCK)
+    _close([want.numpy()], _jax(rpat, xs, block=(64, 128)), 1e-5)
+
+
+@pytest.mark.parametrize("block", [(64,), (0, 128), (64, 128, 2)])
+def test_bad_block_tuples_refused(block):
+    _, tpat = _pair(PE_SPECS["muladd"])
+    with pytest.raises(ValueError, match="block must be"):
+        make_pe_kernel(tpat, block=block, device="cpu")
