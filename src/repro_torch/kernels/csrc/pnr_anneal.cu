@@ -10,11 +10,28 @@
 // K2 `anneal_kernel` replaces the `fori_loop` of `_build_batch_annealer` /
 // `_build_annealer` (reference fabric/place.py) with the Pallas
 // `_hpwl_delta_kernel` fused in: one warp anneals one chain for the whole
-// sweep, holding the chain's slot_of, its inverse (occupant), the per-net
-// costs and best_slot in shared memory.  Each step depends on the one
-// before (the accepted swap changes what the next step reads), so the
-// chain of dependent shared/global loads per step, not bytes, sets its
-// pace; chains run in parallel across blocks.
+// sweep.  Each step depends on the one before (the accepted swap changes
+// what the next step reads), so the latency of one step's chain of
+// dependent loads and reductions, not bytes, sets its pace.  The design
+// shortens that chain:
+// - a block runs one chain (one warp) and stages its problem's read-only
+//   tables in shared memory: the pin table (per net its pin count, then
+//   its pins, masked pins dropped; built by the wrapper), ent_nets and
+//   slot_xy.  The chain keeps its slot_of, its inverse (occupant) and its
+//   per-net costs there.  A block whose tables do not fit beside its chain
+//   reads them from global memory;
+// - duplicate touched nets go in one __match_any_sync: the lowest lane of
+//   a match group keeps the net, the reference's rule that a later
+//   duplicate becomes N (dup_tri);
+// - a net's count and first 7 pins arrive in two 16-byte loads;
+// - the move stream is loaded 32 steps at a time, a step a lane, a chunk
+//   ahead, and broadcast with shuffles;
+// - the best placement is written out when the chain leaves it, not at
+//   every improvement.
+// anneal_global_kernel is the earlier form (tables in global memory, a
+// net's pins read one by one with their mask, duplicates found by
+// rereading earlier entries), kept for comparison
+// (pnr_cost.py::_anneal_chains_global).
 //
 // Arithmetic: every HPWL is an integer-valued float32 far below 2^24, so
 // per-net costs, their sums and deltas are exact in any order; the
@@ -29,6 +46,7 @@
 #define BIG 1e9f
 #define CURVE_POINTS 16
 #define MAX_TOUCH_PER_LANE 2   // 2K <= 64 touched nets per move
+#define FULL_MASK 0xffffffffu
 
 // HPWL of one net: pins/mask point at its D-wide rows.  With `swap`, the
 // entities a and b are scored at each other's slot (the candidate move
@@ -78,9 +96,273 @@ __global__ void net_hpwl_kernel(int R, int N, int D, int E,
                       false, 0, 0, 0, 0);
 }
 
-// K2: one warp per chain r (block r).  Streams a/t/log_u are per chain
-// (R, S); temps/active per problem (P, S).
+// HPWL of the net whose pin-table row is `row` (row[0] = pin count c,
+// row[1..c] = its entities; rows 16-byte aligned, at least 8 wide), with
+// a and b scored at each other's slot.  Pins past the count stand in for
+// the first pin, which leaves the box as it is: every load of a group goes
+// out at once, with no branch.
+__device__ __forceinline__ float row_cost(const int* __restrict__ row,
+                                          const int* slot_of,
+                                          const float2* __restrict__ xy,
+                                          int a, int b, int sa, int sb) {
+  const int4 h0 = reinterpret_cast<const int4*>(row)[0];
+  const int4 h1 = reinterpret_cast<const int4*>(row)[1];
+  const int cnt = h0.x;
+  if (cnt == 0) return 0.0f;
+  auto at = [&](int e) {
+    int s = slot_of[e];
+    s = (e == a) ? sb : ((e == b) ? sa : s);
+    return xy[s];
+  };
+  int e[7] = {h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+#pragma unroll
+  for (int d = 1; d < 7; ++d) e[d] = d < cnt ? e[d] : e[0];
+  float2 p[7];
+#pragma unroll
+  for (int d = 0; d < 7; ++d) p[d] = at(e[d]);
+  float xmin = p[0].x, xmax = p[0].x, ymin = p[0].y, ymax = p[0].y;
+#pragma unroll
+  for (int d = 1; d < 7; ++d) {
+    xmin = fminf(xmin, p[d].x);
+    xmax = fmaxf(xmax, p[d].x);
+    ymin = fminf(ymin, p[d].y);
+    ymax = fmaxf(ymax, p[d].y);
+  }
+  for (int base = 8; base <= cnt; base += 4) {
+    const int4 h = reinterpret_cast<const int4*>(row + base)[0];
+    const int more[4] = {h.x, base + 1 <= cnt ? h.y : e[0],
+                         base + 2 <= cnt ? h.z : e[0],
+                         base + 3 <= cnt ? h.w : e[0]};
+    float2 q[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) q[u] = at(more[u]);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      xmin = fminf(xmin, q[u].x);
+      xmax = fmaxf(xmax, q[u].x);
+      ymin = fminf(ymin, q[u].y);
+      ymax = fmaxf(ymax, q[u].y);
+    }
+  }
+  return (xmax - xmin) + (ymax - ymin);
+}
+
+// One chain's sweep (warp-wide).  tab/en/xy: the problem's tables (shared
+// or global memory); slot_of/occ/pnc: the chain's state in shared memory,
+// cur its cost.  TPL: touched-net slots per lane (2K <= 32 * TPL).
+template <int TPL>
+__device__ __forceinline__ void sweep(
+    int S, int N, int W, int K, int E, int full, int telemetry, int lane,
+    const int* __restrict__ tab, const int* __restrict__ en,
+    const float2* __restrict__ xy, const float* __restrict__ temps_p,
+    const uint8_t* __restrict__ active_p, const int* __restrict__ A_r,
+    const int* __restrict__ T_r, const float* __restrict__ lu_r,
+    int* slot_of, int* occ, float* pnc, float cur,
+    int* __restrict__ best_slot_r, float* __restrict__ best_r,
+    int* __restrict__ accepts_r, float* __restrict__ curve_r) {
+  const int T2 = 2 * K;
+  const unsigned below = (1u << lane) - 1u;
+  float best = cur;
+  bool best_here = true;      // the best placement is slot_of, not written
+  int n_acc = 0;
+  float curve_v = 0.0f;       // lane c < CURVE_POINTS holds point c
+
+  // the move stream, a step a lane: this chunk and the next
+  int ca, ct, cact, na, nt, nact;
+  float clu, ctmp, nlu, ntmp;
+  auto fetch = [&](int i0, int& fa, int& ft, float& flu, float& ftmp,
+                   int& fact) {
+    const int i = i0 + lane;
+    const bool in = i < S;
+    fa = in ? A_r[i] : 0;
+    ft = in ? T_r[i] : 0;
+    flu = in ? lu_r[i] : 0.0f;
+    ftmp = in ? temps_p[i] : 0.0f;
+    fact = in ? active_p[i] : 0;
+  };
+  fetch(0, ca, ct, clu, ctmp, cact);
+  fetch(32, na, nt, nlu, ntmp, nact);
+
+  for (int i0 = 0; i0 < S; i0 += 32) {
+    const int steps = min(32, S - i0);
+    for (int u = 0; u < steps; ++u) {
+      const int a = __shfl_sync(FULL_MASK, ca, u);
+      const int t = __shfl_sync(FULL_MASK, ct, u);
+      const int b = occ[t];
+      const int sa = slot_of[a], sb = slot_of[b];
+      float newc;
+      int tn[TPL];
+      float nv[TPL];
+      if (full) {
+        float acc = 0.0f;
+        for (int n = lane; n < N; n += 32)
+          acc += row_cost(tab + (long long)n * W, slot_of, xy, a, b, sa, sb);
+        newc = warp_sum(acc);
+#pragma unroll
+        for (int k = 0; k < TPL; ++k) tn[k] = N;
+      } else {
+        int nn[TPL];
+        bool keep[TPL];
+#pragma unroll
+        for (int k = 0; k < TPL; ++k) {
+          const int j = lane + 32 * k;
+          nn[k] = j < T2 ? ((j < K) ? en[(long long)a * K + j]
+                                    : en[(long long)b * K + (j - K)])
+                         : N;
+          // the first occurrence of a net keeps it (dup_tri rule)
+          const unsigned grp = __match_any_sync(FULL_MASK, nn[k]);
+          keep[k] = nn[k] < N && (grp & below) == 0u;
+        }
+        if (TPL == 2) {         // entries 32.. also lose to entries 0..31
+          for (int src = 0; src < 32; ++src) {
+            const int v = __shfl_sync(FULL_MASK, nn[0], src);   // all lanes
+            if (v == nn[TPL - 1]) keep[TPL - 1] = false;
+          }
+        }
+        float acc = 0.0f;
+#pragma unroll
+        for (int k = 0; k < TPL; ++k) {
+          tn[k] = keep[k] ? nn[k] : N;
+          nv[k] = 0.0f;
+          if (keep[k]) {
+            nv[k] = row_cost(tab + (long long)nn[k] * W, slot_of, xy, a, b,
+                             sa, sb);
+            acc += nv[k] - pnc[nn[k]];
+          }
+        }
+        newc = cur + warp_sum(acc);
+      }
+      const float lu = __shfl_sync(FULL_MASK, clu, u);
+      const float tmp = __shfl_sync(FULL_MASK, ctmp, u);
+      const int act = __shfl_sync(FULL_MASK, cact, u);
+      const bool accept = ((newc <= cur) || (lu * tmp < cur - newc)) && act;
+      __syncwarp();                // every lane has read the pre-move state
+      if (accept) {
+        if (best_here && !(newc < best)) {
+          // leaving the best placement: write it out before the swap
+          for (int e = lane; e < E; e += 32) best_slot_r[e] = slot_of[e];
+          best_here = false;
+          __syncwarp();
+        }
+#pragma unroll
+        for (int k = 0; k < TPL; ++k)
+          if (tn[k] < N) pnc[tn[k]] = nv[k];
+        if (lane == 0) {
+          slot_of[a] = sb;
+          slot_of[b] = sa;
+          occ[sb] = a;
+          occ[sa] = b;
+        }
+        cur = newc;
+        if (cur < best) {
+          best = cur;
+          best_here = true;
+        }
+      }
+      if (telemetry) {
+        n_acc += accept ? 1 : 0;
+        const int idx = (int)(((long long)(i0 + u) * CURVE_POINTS) / S);
+        if (lane == min(idx, CURVE_POINTS - 1)) curve_v = cur;
+      }
+      __syncwarp();
+    }
+    ca = na;
+    ct = nt;
+    clu = nlu;
+    ctmp = ntmp;
+    cact = nact;
+    fetch(i0 + 64, na, nt, nlu, ntmp, nact);
+  }
+
+  if (best_here)
+    for (int e = lane; e < E; e += 32) best_slot_r[e] = slot_of[e];
+  if (lane == 0) {
+    *best_r = best;
+    if (telemetry) *accepts_r = n_acc;
+  }
+  if (telemetry && lane < CURVE_POINTS) curve_r[lane] = curve_v;
+}
+
+// K2: one chain r a block (blockDim.x = 32).  pin_tab (P, N, W): per net
+// [count, pins..., -1...].  Streams a/t/log_u are per chain (R, S);
+// temps/active per problem (P, S).  With `stage`, the chain's problem's
+// tables are copied to shared memory.
 __global__ void anneal_kernel(
+    int S, int N, int W, int E, int K, int stage, int full, int telemetry,
+    const int* __restrict__ prob, const float* __restrict__ slot_xy,
+    const int* __restrict__ pin_tab, const int* __restrict__ ent_nets,
+    const float* __restrict__ temps, const uint8_t* __restrict__ active,
+    const int* __restrict__ A, const int* __restrict__ T,
+    const float* __restrict__ log_u, const int* __restrict__ slot0,
+    const float* __restrict__ pnc0, int* __restrict__ best_slot_out,
+    float* __restrict__ best_out, int* __restrict__ accepts_out,
+    float* __restrict__ curve_out) {
+  extern __shared__ int4 smem_i4[];
+  const int r = blockIdx.x, lane = threadIdx.x;
+  const long long p = prob[r];
+  const int* tab_g = pin_tab + p * N * W;
+  const int* en_g = ent_nets + p * E * K;
+  const float2* xy_g = reinterpret_cast<const float2*>(slot_xy + p * E * 2);
+  // [pin table N*W | xy E | ent_nets E*K] (if staged), then the chain's
+  // [slot_of E | occ E | pnc N]
+  int* tab_s = reinterpret_cast<int*>(smem_i4);
+  float2* xy_s = reinterpret_cast<float2*>(tab_s + (stage ? N * W : 0));
+  int* en_s = reinterpret_cast<int*>(xy_s + (stage ? E : 0));
+  int* slot_of = en_s + (stage ? E * K : 0);
+  int* occ = slot_of + E;
+  float* pnc = reinterpret_cast<float*>(occ + E);
+  if (stage) {
+    const int4* src = reinterpret_cast<const int4*>(tab_g);
+    for (int i = lane; i < N * W / 4; i += 32)
+      reinterpret_cast<int4*>(tab_s)[i] = src[i];
+    for (int i = lane; i < E; i += 32) xy_s[i] = xy_g[i];
+    for (int i = lane; i < E * K; i += 32) en_s[i] = en_g[i];
+  }
+  for (int e = lane; e < E; e += 32) {
+    const int s = slot0[(long long)r * E + e];
+    slot_of[e] = s;
+    occ[s] = e;
+  }
+  float part = 0.0f;
+  for (int n = lane; n < N; n += 32) {
+    const float c = pnc0[(long long)r * N + n];
+    pnc[n] = c;
+    part += c;
+  }
+  const float cur = warp_sum(part);     // exact: integer-valued costs
+  __syncwarp();
+
+  const float* temps_p = temps + p * S;
+  const uint8_t* active_p = active + p * S;
+  const int* A_r = A + (long long)r * S;
+  const int* T_r = T + (long long)r * S;
+  const float* lu_r = log_u + (long long)r * S;
+  int* bs_r = best_slot_out + (long long)r * E;
+  float* curve_r = curve_out + (long long)r * CURVE_POINTS;
+  // four inlined copies: the compiler reads the staged tables with
+  // shared-memory loads in the first two
+  if (stage && 2 * K <= 32)
+    sweep<1>(S, N, W, K, E, full, telemetry, lane, tab_s, en_s, xy_s,
+             temps_p, active_p, A_r, T_r, lu_r, slot_of, occ, pnc, cur, bs_r,
+             best_out + r, accepts_out + r, curve_r);
+  else if (stage)
+    sweep<2>(S, N, W, K, E, full, telemetry, lane, tab_s, en_s, xy_s,
+             temps_p, active_p, A_r, T_r, lu_r, slot_of, occ, pnc, cur, bs_r,
+             best_out + r, accepts_out + r, curve_r);
+  else if (2 * K <= 32)
+    sweep<1>(S, N, W, K, E, full, telemetry, lane, tab_g, en_g, xy_g,
+             temps_p, active_p, A_r, T_r, lu_r, slot_of, occ, pnc, cur, bs_r,
+             best_out + r, accepts_out + r, curve_r);
+  else
+    sweep<2>(S, N, W, K, E, full, telemetry, lane, tab_g, en_g, xy_g,
+             temps_p, active_p, A_r, T_r, lu_r, slot_of, occ, pnc, cur, bs_r,
+             best_out + r, accepts_out + r, curve_r);
+}
+
+// K2's earlier form: one warp per chain r (block r), the tables read from
+// global memory.  Streams a/t/log_u are per chain (R, S); temps/active per
+// problem (P, S).
+__global__ void anneal_global_kernel(
     int S, int N, int D, int E, int K, int full, int telemetry,
     const int* __restrict__ prob, const float* __restrict__ slot_xy,
     const int* __restrict__ net_pins, const uint8_t* __restrict__ net_mask,
@@ -227,19 +509,21 @@ int pnr_net_hpwl(int R, int N, int D, int E, const void* prob,
   return (int)cudaGetLastError();
 }
 
-long long pnr_anneal_smem_bytes(int N, int E) {
-  return (long long)E * 8 + (long long)E * 12 + (long long)N * 4
-         + CURVE_POINTS * 4;
+// K2's shared memory: the staged tables (if `stage`) and one chain's state.
+long long pnr_anneal_smem_bytes(int N, int W, int E, int K, int stage) {
+  long long tables = stage ? ((long long)N * W + (long long)E * 2
+                              + (long long)E * K) * 4 : 0;
+  return tables + (2LL * E + N) * 4;
 }
 
-int pnr_anneal(int R, int S, int N, int D, int E, int K, int full,
+int pnr_anneal(int R, int S, int N, int W, int E, int K, int stage, int full,
                int telemetry, const void* prob, const void* slot_xy,
-               const void* net_pins, const void* net_mask,
-               const void* ent_nets, const void* temps, const void* active,
-               const void* A, const void* T, const void* log_u,
-               const void* slot0, const void* pnc0, void* best_slot,
-               void* best, void* accepts, void* curve, void* stream) {
-  long long smem = pnr_anneal_smem_bytes(N, E);
+               const void* pin_tab, const void* ent_nets, const void* temps,
+               const void* active, const void* A, const void* T,
+               const void* log_u, const void* slot0, const void* pnc0,
+               void* best_slot, void* best, void* accepts, void* curve,
+               void* stream) {
+  long long smem = pnr_anneal_smem_bytes(N, W, E, K, stage);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         anneal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -248,6 +532,38 @@ int pnr_anneal(int R, int S, int N, int D, int E, int K, int full,
   }
   if (R > 0) {
     anneal_kernel<<<R, 32, (size_t)smem, (cudaStream_t)stream>>>(
+        S, N, W, E, K, stage, full, telemetry, (const int*)prob,
+        (const float*)slot_xy, (const int*)pin_tab, (const int*)ent_nets,
+        (const float*)temps, (const uint8_t*)active, (const int*)A,
+        (const int*)T, (const float*)log_u, (const int*)slot0,
+        (const float*)pnc0, (int*)best_slot, (float*)best, (int*)accepts,
+        (float*)curve);
+  }
+  return (int)cudaGetLastError();
+}
+
+long long pnr_anneal_global_smem_bytes(int N, int E) {
+  return (long long)E * 8 + (long long)E * 12 + (long long)N * 4
+         + CURVE_POINTS * 4;
+}
+
+int pnr_anneal_global(int R, int S, int N, int D, int E, int K, int full,
+                      int telemetry, const void* prob, const void* slot_xy,
+                      const void* net_pins, const void* net_mask,
+                      const void* ent_nets, const void* temps,
+                      const void* active, const void* A, const void* T,
+                      const void* log_u, const void* slot0,
+                      const void* pnc0, void* best_slot, void* best,
+                      void* accepts, void* curve, void* stream) {
+  long long smem = pnr_anneal_global_smem_bytes(N, E);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        anneal_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (R > 0) {
+    anneal_global_kernel<<<R, 32, (size_t)smem, (cudaStream_t)stream>>>(
         S, N, D, E, K, full, telemetry, (const int*)prob,
         (const float*)slot_xy, (const int*)net_pins,
         (const uint8_t*)net_mask, (const int*)ent_nets,

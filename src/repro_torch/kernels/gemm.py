@@ -7,15 +7,17 @@ each output element while its accumulator is still in registers.
 
 Kernel K5 (``gemm_pe_kernel``, CUDA C++ for sm_90a in
 ``csrc/gemm_pe.cu``) replaces the reference's Pallas ``_gemm_kernel``
-(``repro/kernels/gemm.py``): x (M, K) @ w (K, N), both widened to float32,
-a float32 accumulator, then the epilogue (free port 0 = the accumulator,
-further free ports = extras: ``vec`` (N,) broadcast over rows or ``full``
-(M, N)), first sink only, stored as ``out_dtype or x.dtype``.  At the
-main path's shapes it is bound by operations.  The epilogue reaches the
-kernel as a short op list (:func:`encode_epilogue`) interpreted per
-element through one device table that mirrors ``_JNP_SEMANTICS``; it
-costs O(M*N*ops) against the K loop's O(M*N*K), so one build serves every
-pattern.
+(``repro/kernels/gemm.py``): x (M, K) @ w (K, N) with a float32
+accumulator, then the epilogue (free port 0 = the accumulator, further
+free ports = extras: ``vec`` (N,) broadcast over rows or ``full`` (M, N)),
+first sink only, stored as ``out_dtype or x.dtype``.  The product runs on
+the TF32 tensor cores with the 3xTF32 split (hi + lo parts of each float32
+operand, three products), which keeps float32 accuracy; bfloat16
+operands are exact in TF32 and take one product.  At the main path's
+shapes it is bound by operations.  The epilogue reaches the kernel as a
+short op list (:func:`encode_epilogue`) interpreted per element through
+one device table that mirrors ``_JNP_SEMANTICS``; it costs O(M*N*ops)
+against the K loop's O(M*N*K), so one build serves every pattern.
 
 ``gemm_pe`` counts its launches in ``gemm_pe.launches``.  For CUDA
 tensors it launches K5 or raises; for CPU tensors it runs
@@ -43,6 +45,9 @@ _SOURCE = "gemm_pe.cu"
 #: opcode i of the device table in ``csrc/gemm_pe.cu`` (same order)
 EPI_OPCODES: Tuple[str, ...] = tuple(_TORCH_SEMANTICS)
 MAX_OPS, MAX_SLOTS, MAX_EXTRA = 32, 64, 8
+#: K5's output tile (M, N) and step of K: the split operands are padded
+#: to them
+TILE = (128, 128, 32)
 _KINDS = {"vec": 0, "full": 1}
 
 
@@ -165,17 +170,20 @@ def _lib():
     lib = load(_SOURCE)
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gemm_pe_launch.argtypes = [i, i, i, p, p, p, i, i,
+        lib.gemm_pe_launch.argtypes = [i, i, i, p, p, p, p, p, i, i,
                                        ctypes.POINTER(_EpiArg), p]
         lib.gemm_pe_launch.restype = i
+        lib.gemm_pe_simt_launch.argtypes = [i, i, i, p, p, p, i, i,
+                                            ctypes.POINTER(_EpiArg), p]
+        lib.gemm_pe_simt_launch.restype = i
         lib.gemm_pe_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.gemm_pe_limits.restype = i
         lib.gemm_pe_error_string.argtypes = [i]
         lib.gemm_pe_error_string.restype = ctypes.c_char_p
-        limits = (ctypes.c_int * 4)()
+        limits = (ctypes.c_int * 7)()
         lib.gemm_pe_limits(limits)
         if tuple(limits) != (len(EPI_OPCODES), MAX_OPS, MAX_SLOTS,
-                             MAX_EXTRA):
+                             MAX_EXTRA, *TILE):
             raise RuntimeError(f"{_SOURCE} limits {tuple(limits)} differ "
                                f"from gemm.py's")
         lib._typed = True
@@ -199,18 +207,10 @@ def _epi_arg(epi: Optional[Epilogue], extras: Sequence[torch.Tensor],
     return arg
 
 
-def gemm_pe(x, w, *extras, epilogue: Optional[Graph] = None,
-            extra_kinds: Tuple[str, ...] = (), out_dtype=None,
-            device="cuda") -> torch.Tensor:
-    """x (M, K) @ w (K, N) with the fused ``epilogue`` (a PE pattern whose
-    first free port is the accumulator; one extra per further free port,
-    of kind ``vec`` (N,) or ``full`` (M, N)).  Returns (M, N) in
-    ``out_dtype or x.dtype``.
-
-    Operands (tensors or arrays) are moved to ``device``: K5 on the card
-    (the default; raises without one), the plain version on
-    ``device="cpu"``.  Any M, N, K: the kernel masks the ragged edges.
-    """
+def _run(entry: str, x, w, extras, epilogue, extra_kinds, out_dtype,
+         device) -> Tuple[torch.Tensor, bool]:
+    """Checks, then the plain version (CPU) or the kernel behind the C
+    entry point ``entry`` (CUDA); returns (out, launched)."""
     dev = resolve_device(device)
     x, w = torch.as_tensor(x, device=dev), torch.as_tensor(w, device=dev)
     extras = tuple(torch.as_tensor(e, device=dev) for e in extras)
@@ -219,11 +219,10 @@ def gemm_pe(x, w, *extras, epilogue: Optional[Graph] = None,
     out_dtype = out_dtype or x.dtype
     if dev.type != "cuda":
         return gemm_pe_plain(x, w, *extras, epilogue=epilogue,
-                             extra_kinds=extra_kinds, out_dtype=out_dtype)
+                             extra_kinds=extra_kinds,
+                             out_dtype=out_dtype), False
     epi = None if epilogue is None else encode_epilogue(epilogue)
     (m, k), n = x.shape, w.shape[1]
-    if (m + 127) // 128 > 65535:
-        raise ValueError(f"M = {m} exceeds K5's grid (65535 row tiles)")
     # both operands float32, or both bfloat16 (a float32/bfloat16 mix
     # widens the bfloat16 one, exactly)
     in_bf16 = x.dtype == w.dtype == torch.bfloat16
@@ -234,17 +233,56 @@ def gemm_pe(x, w, *extras, epilogue: Optional[Graph] = None,
     out = torch.empty((m, n), device=dev,
                       dtype=torch.bfloat16 if out_bf16 else torch.float32)
     if m * n == 0:
-        return out.to(out_dtype)
+        return out.to(out_dtype), False
     arg = _epi_arg(epi, extras, extra_kinds)
     lib = _lib()
-    rc = lib.gemm_pe_launch(m, n, k, _ptr(x), _ptr(w), _ptr(out),
-                            int(in_bf16), int(out_bf16), ctypes.byref(arg),
-                            _stream(dev))
+    scratch = ()
+    if entry == "gemm_pe_launch":
+        # the split operands: (parts, Mp, Kp) and (parts, Np, Kp), held
+        # here until the launch is queued
+        parts = 1 if in_bf16 else 2
+        mp, np_, kp = (-(-v // t) * t for v, t in zip((m, n, k), TILE))
+        scratch = (torch.empty((parts, mp, kp), device=dev),
+                   torch.empty((parts, np_, kp), device=dev))
+    rc = getattr(lib, entry)(m, n, k, _ptr(x), _ptr(w),
+                             *map(_ptr, scratch), _ptr(out), int(in_bf16),
+                             int(out_bf16), ctypes.byref(arg), _stream(dev))
     if rc != 0:
-        raise RuntimeError(f"gemm_pe_kernel failed to launch: CUDA error "
-                           f"{rc} ({lib.gemm_pe_error_string(rc).decode()})")
-    gemm_pe.launches += 1
-    return out if out.dtype == out_dtype else out.to(out_dtype)
+        raise RuntimeError(f"{entry} failed: CUDA error {rc} "
+                           f"({lib.gemm_pe_error_string(rc).decode()})")
+    return (out if out.dtype == out_dtype else out.to(out_dtype)), True
+
+
+def gemm_pe(x, w, *extras, epilogue: Optional[Graph] = None,
+            extra_kinds: Tuple[str, ...] = (), out_dtype=None,
+            device="cuda") -> torch.Tensor:
+    """x (M, K) @ w (K, N) with the fused ``epilogue`` (a PE pattern whose
+    first free port is the accumulator; one extra per further free port,
+    of kind ``vec`` (N,) or ``full`` (M, N)).  Returns (M, N) in
+    ``out_dtype or x.dtype``.
+
+    Operands (tensors or arrays) are moved to ``device``: K5 on the card
+    (the default; raises without one), the plain version on
+    ``device="cpu"``.  Any M, N, K: K5's first pass writes the operands'
+    TF32 parts zero-padded to whole tiles (scratch of (Mp + Np) * Kp
+    float32 a part), and its main kernel masks the result's ragged edge.
+    """
+    out, launched = _run("gemm_pe_launch", x, w, extras, epilogue,
+                         extra_kinds, out_dtype, device)
+    gemm_pe.launches += launched
+    return out
 
 
 gemm_pe.launches = 0
+
+
+def _gemm_pe_simt(x, w, *extras, epilogue: Optional[Graph] = None,
+                  extra_kinds: Tuple[str, ...] = (), out_dtype=None,
+                  device="cuda") -> torch.Tensor:
+    """:func:`gemm_pe` on K5's earlier SIMT float32 form (a 128x128 tile
+    of ``__fmaf_rn`` multiply-adds, no tensor cores), kept to compare the
+    two forms on the card; nothing on the main path calls it."""
+    if (torch.as_tensor(x).shape[0] + 127) // 128 > 65535:
+        raise ValueError("M exceeds the SIMT form's grid (65535 row tiles)")
+    return _run("gemm_pe_simt_launch", x, w, extras, epilogue, extra_kinds,
+                out_dtype, device)[0]

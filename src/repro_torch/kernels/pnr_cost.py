@@ -36,7 +36,8 @@ import torch
 
 __all__ = ["hpwl_reference", "net_hpwl_from_xy", "net_hpwl", "hpwl",
            "hpwl_delta", "net_hpwl_rows", "net_hpwl_rows_plain",
-           "anneal_chains", "anneal_chains_plain", "CURVE_POINTS"]
+           "anneal_chains", "anneal_chains_plain", "anneal_layout",
+           "pin_table", "CURVE_POINTS"]
 
 _BIG = 1e9
 
@@ -44,7 +45,10 @@ _BIG = 1e9
 CURVE_POINTS = 16
 
 _SOURCE = "pnr_anneal.cu"
-_MAX_TOUCHED = 64          # 2K: the kernel keeps two touched nets per lane
+#: 2K: K2 keeps at most two touched nets a lane (one when 2K <= 32)
+_MAX_TOUCHED = 64
+#: shared memory a block may use on Hopper (232,448 bytes)
+SMEM_LIMIT = 227 * 1024
 
 
 def hpwl_reference(pos: np.ndarray, net_pins: np.ndarray,
@@ -131,10 +135,14 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.pnr_net_hpwl.argtypes = [i, i, i, i] + [p] * 7
         lib.pnr_net_hpwl.restype = i
-        lib.pnr_anneal.argtypes = [i] * 8 + [p] * 17
+        lib.pnr_anneal.argtypes = [i] * 9 + [p] * 16
         lib.pnr_anneal.restype = i
-        lib.pnr_anneal_smem_bytes.argtypes = [i, i]
+        lib.pnr_anneal_smem_bytes.argtypes = [i] * 5
         lib.pnr_anneal_smem_bytes.restype = ctypes.c_longlong
+        lib.pnr_anneal_global.argtypes = [i] * 8 + [p] * 17
+        lib.pnr_anneal_global.restype = i
+        lib.pnr_anneal_global_smem_bytes.argtypes = [i, i]
+        lib.pnr_anneal_global_smem_bytes.restype = ctypes.c_longlong
         lib.pnr_error_string.argtypes = [i]
         lib.pnr_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -332,36 +340,52 @@ def anneal_chains_plain(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
             n_acc if telemetry else None, curve if telemetry else None)
 
 
-def anneal_chains(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
-                  active, a, t, log_u, slot0, pnc0, *, full: bool = False,
-                  telemetry: bool = False) -> AnnealOut:
-    """Anneal R chains, each over its own problem, for S steps.
+def pin_table(net_pins: torch.Tensor, net_mask: torch.Tensor
+              ) -> torch.Tensor:
+    """K2's pin table: (P, N, W) int32, row ``[c, e_1 .. e_c, -1 ...]`` per
+    net with its ``c`` masked-in pins in their order (the mask folded
+    in), ``W = max(8, D + 1 rounded up to 4)`` so a row is whole 16-byte
+    loads and its count and first 7 pins are two of them."""
+    p, n, d = net_pins.shape
+    w = max(8, (d + 4) // 4 * 4)
+    order = torch.sort((~net_mask).to(torch.uint8), dim=-1,
+                       stable=True).indices
+    cnt = net_mask.sum(dim=-1, dtype=torch.int32)
+    pins = torch.gather(net_pins, -1, order)
+    real = torch.arange(d, device=net_pins.device) < cnt[..., None]
+    tab = torch.full((p, n, w), -1, dtype=torch.int32,
+                     device=net_pins.device)
+    tab[..., 0] = cnt
+    tab[..., 1:d + 1] = torch.where(real, pins, -1)
+    return tab
 
-    Problem arrays (P problems): slot_xy (P, E, 2) float32, net_pins and
-    net_mask (P, N, D) int32/bool, ent_nets (P, E, K) int32 (entries >= N
-    are padding), temps (P, S) float32, active (P, S) bool.  Per chain:
-    prob (R,) int32, move streams a / t (R, S) int32 and log_u (R, S)
-    float32, starting slots slot0 (R, E) int32 and their per-net costs
-    pnc0 (R, N) float32.
 
-    Each step swaps entity ``a`` with the occupant ``b`` of slot ``t``,
-    rescores the nets the swap touches (every net with ``full``), accepts
-    when ``new <= cur`` or ``log_u * temp < cur - new`` (and the step is
-    active), and tracks the best placement.  Returns ``(best_slot (R, E)
-    int32, best (R,) float32, accepts (R,) int32, curve (R, 16) float32)``;
-    the last two only with ``telemetry`` (else None).
+def anneal_layout(n: int, d: int, e: int, k: int) -> Tuple[int, bool, int]:
+    """K2's launch layout for a problem of N nets, D pins a net, E entities
+    and K nets an entity: ``(W, stage, smem)`` — the pin table's row
+    width, whether the problem's tables are staged in shared memory, and
+    a block's shared-memory bytes (``pnr_anneal_smem_bytes`` in
+    ``csrc/pnr_anneal.cu``).
 
-    Kernel K2 (``anneal_kernel``): one warp per chain for the whole sweep,
-    the chain's state in shared memory; the delta rescoring of the
-    reference's Pallas ``_hpwl_delta_kernel`` fused into each step.  The
-    step-to-step dependency, not bytes, sets its pace.
+    The tables stay in global memory when they do not fit beside the
+    chain's state; ``ValueError`` when that state alone exceeds
+    :data:`SMEM_LIMIT`.
     """
+    w = max(8, (d + 4) // 4 * 4)
+    tables = (n * w + 2 * e + e * k) * 4
+    chain = (2 * e + n) * 4
+    if chain > SMEM_LIMIT:
+        raise ValueError(f"anneal_chains: {e} entities and {n} nets need "
+                         f"{chain} bytes of shared memory a chain "
+                         f"(> {SMEM_LIMIT}, 227 KB)")
+    stage = tables + chain <= SMEM_LIMIT
+    return w, stage, (tables if stage else 0) + chain
+
+
+def _anneal_checks(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
+                   active, a, t, log_u, slot0, pnc0):
+    """The kernels' argument checks; returns (R, S, N, D, E, K, P)."""
     dev = slot0.device
-    if dev.type != "cuda":
-        return anneal_chains_plain(prob, slot_xy, net_pins, net_mask,
-                                   ent_nets, temps, active, a, t, log_u,
-                                   slot0, pnc0, full=full,
-                                   telemetry=telemetry)
     r, e = slot0.shape
     p, n, d = net_pins.shape
     k = ent_nets.shape[2]
@@ -382,21 +406,65 @@ def anneal_chains(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
             ("slot0", slot0, torch.int32, (r, e)),
             ("pnc0", pnc0, torch.float32, (r, n))):
         _check(name, x, dt, shape, dev)
+    return r, s, n, d, e, k, p
+
+
+def _anneal_outputs(r, e, dev):
+    return (torch.empty((r, e), dtype=torch.int32, device=dev),
+            torch.empty((r,), dtype=torch.float32, device=dev),
+            torch.zeros((r,), dtype=torch.int32, device=dev),
+            torch.zeros((r, CURVE_POINTS), dtype=torch.float32, device=dev))
+
+
+def anneal_chains(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
+                  active, a, t, log_u, slot0, pnc0, *, full: bool = False,
+                  telemetry: bool = False) -> AnnealOut:
+    """Anneal R chains, each over its own problem, for S steps.
+
+    Problem arrays (P problems): slot_xy (P, E, 2) float32, net_pins and
+    net_mask (P, N, D) int32/bool, ent_nets (P, E, K) int32 (entries >= N
+    are padding), temps (P, S) float32, active (P, S) bool.  Per chain:
+    prob (R,) int32, move streams a / t (R, S) int32 and log_u (R, S)
+    float32, starting slots slot0 (R, E) int32 and their per-net costs
+    pnc0 (R, N) float32.
+
+    Each step swaps entity ``a`` with the occupant ``b`` of slot ``t``,
+    rescores the nets the swap touches (every net with ``full``), accepts
+    when ``new <= cur`` or ``log_u * temp < cur - new`` (and the step is
+    active), and tracks the best placement.  Returns ``(best_slot (R, E)
+    int32, best (R,) float32, accepts (R,) int32, curve (R, 16) float32)``;
+    the last two only with ``telemetry`` (else None).
+
+    Kernel K2 (``anneal_kernel``): a warp a chain for the whole sweep, one
+    chain a block with its problem's tables (pin table, ent_nets, slot
+    coordinates) staged in shared memory and its own state there too; the
+    delta rescoring of the reference's Pallas ``_hpwl_delta_kernel`` fused
+    into each step.  The latency of one step's dependent loads and
+    reductions, not bytes, sets its pace (:func:`anneal_layout` gives the
+    launch layout).
+    """
+    dev = slot0.device
+    if dev.type != "cuda":
+        return anneal_chains_plain(prob, slot_xy, net_pins, net_mask,
+                                   ent_nets, temps, active, a, t, log_u,
+                                   slot0, pnc0, full=full,
+                                   telemetry=telemetry)
+    r, s, n, d, e, k, p = _anneal_checks(prob, slot_xy, net_pins, net_mask,
+                                         ent_nets, temps, active, a, t,
+                                         log_u, slot0, pnc0)
+    w, stage, smem = anneal_layout(n, d, e, k)
     lib = _lib()
-    smem = lib.pnr_anneal_smem_bytes(n, e)
-    if smem > 227 * 1024:
-        raise ValueError(f"anneal_chains: {e} entities x {n} nets need "
-                         f"{smem} bytes of shared memory (> 227 KB)")
-    best_slot = torch.empty((r, e), dtype=torch.int32, device=dev)
-    best = torch.empty((r,), dtype=torch.float32, device=dev)
-    accepts = torch.zeros((r,), dtype=torch.int32, device=dev)
-    curve = torch.zeros((r, CURVE_POINTS), dtype=torch.float32, device=dev)
-    rc = lib.pnr_anneal(r, s, n, d, e, k, int(full), int(telemetry),
-                        _ptr(prob), _ptr(slot_xy), _ptr(net_pins),
-                        _ptr(net_mask), _ptr(ent_nets), _ptr(temps),
-                        _ptr(active), _ptr(a), _ptr(t), _ptr(log_u),
-                        _ptr(slot0), _ptr(pnc0), _ptr(best_slot), _ptr(best),
-                        _ptr(accepts), _ptr(curve), _stream(dev))
+    if lib.pnr_anneal_smem_bytes(n, w, e, k, int(stage)) != smem:
+        raise RuntimeError("anneal_layout and csrc/pnr_anneal.cu disagree "
+                           "on K2's shared memory")
+    tab = pin_table(net_pins, net_mask)
+    best_slot, best, accepts, curve = _anneal_outputs(r, e, dev)
+    rc = lib.pnr_anneal(r, s, n, w, e, k, int(stage), int(full),
+                        int(telemetry), _ptr(prob), _ptr(slot_xy), _ptr(tab),
+                        _ptr(ent_nets), _ptr(temps), _ptr(active), _ptr(a),
+                        _ptr(t), _ptr(log_u), _ptr(slot0), _ptr(pnc0),
+                        _ptr(best_slot), _ptr(best), _ptr(accepts),
+                        _ptr(curve), _stream(dev))
     _check_rc(lib, rc, "anneal_kernel")
     anneal_chains.launches += 1
     return (best_slot, best, accepts if telemetry else None,
@@ -404,3 +472,31 @@ def anneal_chains(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
 
 
 anneal_chains.launches = 0
+
+
+def _anneal_chains_global(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
+                          active, a, t, log_u, slot0, pnc0, *,
+                          full: bool = False, telemetry: bool = False
+                          ) -> AnnealOut:
+    """:func:`anneal_chains` on K2's earlier form (``anneal_global_kernel``:
+    one warp a block, the tables read from global memory), kept to compare
+    the two forms on the card; nothing on the main path calls it.  CUDA
+    tensors only."""
+    r, s, n, d, e, k, p = _anneal_checks(prob, slot_xy, net_pins, net_mask,
+                                         ent_nets, temps, active, a, t,
+                                         log_u, slot0, pnc0)
+    lib = _lib()
+    smem = lib.pnr_anneal_global_smem_bytes(n, e)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"anneal_chains: {e} entities x {n} nets need "
+                         f"{smem} bytes of shared memory (> 227 KB)")
+    best_slot, best, accepts, curve = _anneal_outputs(r, e, slot0.device)
+    rc = lib.pnr_anneal_global(
+        r, s, n, d, e, k, int(full), int(telemetry), _ptr(prob),
+        _ptr(slot_xy), _ptr(net_pins), _ptr(net_mask), _ptr(ent_nets),
+        _ptr(temps), _ptr(active), _ptr(a), _ptr(t), _ptr(log_u),
+        _ptr(slot0), _ptr(pnc0), _ptr(best_slot), _ptr(best), _ptr(accepts),
+        _ptr(curve), _stream(slot0.device))
+    _check_rc(lib, rc, "anneal_global_kernel")
+    return (best_slot, best, accepts if telemetry else None,
+            curve if telemetry else None)

@@ -1,8 +1,13 @@
 """The port's matmul with a fused PE epilogue (K5's plain version,
 ``device="cpu"``) against the JAX package's Pallas kernel run in interpret
-mode, on the same seeded numpy inputs; and K5's encoded op list, evaluated
+mode, on the same seeded numpy inputs; K5's encoded op list, evaluated
 in numpy through a mirror of ``csrc/gemm_pe.cu``'s device table, against
-the float64 oracle ``ref_gemm_pe``.
+the float64 oracle ``ref_gemm_pe``; and a plain emulation of K5's 3xTF32
+product (each operand rounded to TF32 as ``cvt.rna`` does, by bit
+arithmetic, split into hi + lo, three products a step) against the
+float64 product at the main path's depth (within 1e-5 of max(1, |x|):
+float32 accuracy) and, with the encoded epilogue, against the Pallas
+kernel on shapes ragged against K5's tile.
 
 Tolerance: rtol = atol = 1e-4 (the reference tests' own,
 ``tests/test_kernels.py``): float32 products summed in another order.
@@ -270,3 +275,78 @@ def test_reference_tile_keywords_change_no_result(block):
     assert torch.equal(got, want)
     assert torch.equal(t_matmul(x, w, bm=64, bn=64, bk=64, device="cpu"),
                        t_matmul(x, w, device="cpu"))
+
+
+# ---------------------------------------------------------------------------
+# K5's product as the kernel computes it: 3xTF32 on the tensor cores
+# ---------------------------------------------------------------------------
+def _tf32(a):
+    """Round float32 to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties
+    away from zero, keeping 10 mantissa bits (the low 13 bits zero)."""
+    bits = np.asarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _k5_product(x, w):
+    """x @ w as K5 computes it: each operand split into TF32 parts hi =
+    tf32(a), lo = tf32(a - hi); per 32-deep step of K the tensor cores sum
+    lo*hi + hi*lo + hi*hi from zero (modelled as one rounding of the exact
+    sum), and the step's sum is added to the float32 result."""
+    xh, wh = _tf32(x), _tf32(w)
+    xl, wl = _tf32(x - xh), _tf32(w - wh)
+    acc = np.zeros((x.shape[0], w.shape[1]), np.float32)
+    for k0 in range(0, x.shape[1], 32):
+        s = slice(k0, k0 + 32)
+        step = sum(a[:, s].astype(np.float64) @ b[s].astype(np.float64)
+                   for a, b in ((xl, wh), (xh, wl), (xh, wh)))
+        acc = acc + step.astype(np.float32)
+    return acc
+
+
+def test_tf32_rounding_and_split_are_exact():
+    rng = np.random.default_rng(18)
+    a = (rng.normal(size=4096) * 10.0 ** rng.integers(-6, 6, 4096)).astype(
+        np.float32)
+    hi = _tf32(a)
+    assert not (hi.view(np.uint32) & 0x1FFF).any()
+    # round to nearest: |a - hi| <= half a TF32 ulp (2^-11 relative)
+    assert (np.abs(a - hi) <= np.abs(hi) * 2.0 ** -11).all()
+    lo = _tf32(a - hi)
+    # hi + lo keeps 21 bits or more of a's 24
+    assert (np.abs(a.astype(np.float64) - hi - lo)
+            <= np.abs(a) * 2.0 ** -21).all()
+    # ties go away from zero
+    tie = np.float32([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)])
+    assert _tf32(tie).tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10)]
+    # bfloat16 operands are TF32 values: K5 takes them in one product
+    b = torch.as_tensor(a).bfloat16().float().numpy()
+    assert np.array_equal(_tf32(b), b)
+
+
+def test_tf32x3_product_holds_float32_accuracy():
+    # the main path's depth (d_model 2048) and a layer's initialisation
+    rng = np.random.default_rng(2048)
+    m, k, n = 64, 2048, 48
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = (rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32)
+    exact = x.astype(np.float64) @ w.astype(np.float64)
+    scale = np.maximum(1.0, np.abs(exact))
+    assert (np.abs(_k5_product(x, w) - exact) / scale).max() <= 1e-5
+    # one TF32 product alone is not float32-accurate
+    one = _tf32(x).astype(np.float64) @ _tf32(w).astype(np.float64)
+    assert (np.abs(one - exact) / scale).max() > 1e-4
+
+
+@pytest.mark.parametrize("m,k,n", [(200, 72, 136), (130, 37, 129),
+                                   (64, 2048, 64)])
+@pytest.mark.parametrize("name", ["bias_relu", "residual", "gelu_like"])
+def test_tf32x3_emulation_matches_reference(name, m, k, n):
+    # ragged M, N against K5's 128 x 128 tile and K against its 32-deep
+    # step; K = 37 and N = 129 also off its 16-byte copies
+    rpat, tpat, kinds = _pats(name)
+    x, w, extras = _operands(m, k, n, kinds, seed=m + k + n)
+    acc = _k5_product(x, w)
+    got = _eval_encoded(encode_epilogue(tpat), acc, extras, kinds)
+    want = _jax(x, w, extras, epilogue=rpat, extra_kinds=kinds)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)

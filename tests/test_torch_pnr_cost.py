@@ -3,6 +3,9 @@ kernels against the JAX package's jnp functions, its Pallas kernels (in
 interpret mode, as the JAX package's own tests run them) and the
 pure-Python oracle.
 
+K2's layout (its pin table and shared-memory formula) is checked against
+the image suite's largest pnr signature.
+
 Tolerance: exact equality.  Coordinates are small integers, so every
 per-net HPWL, total and delta is an integer-valued float32 far below
 2^24 and exact in any summation order.
@@ -145,3 +148,77 @@ def test_anneal_plain_delta_equals_full(seed):
         assert float(port.hpwl(slot_xy[p][best_slot[r].long()], pins[p],
                                mask[p])) == float(best[r])
     assert (best <= pnc0.sum(dim=1)).all()
+
+
+# ---------------------------------------------------------------------------
+# K2's layout: the pin table and the shared-memory formula
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("seed", range(3))
+def test_pin_table_keeps_each_nets_pins(seed):
+    prob, slot_xy, pins, mask, *_ = _problem_batch(seed)
+    tab = port.pin_table(pins, mask)
+    p_n, n, d = pins.shape
+    assert tab.dtype == torch.int32 and tab.shape[:2] == (p_n, n)
+    assert tab.shape[2] >= 8 and tab.shape[2] % 4 == 0 and tab.shape[2] > d
+    for p in range(p_n):
+        for i in range(n):
+            real = pins[p, i][mask[p, i]].tolist()
+            row = tab[p, i].tolist()
+            assert row[0] == len(real)
+            assert row[1:1 + len(real)] == real
+            assert all(v == -1 for v in row[1 + len(real):])
+
+
+def _image_problems():
+    """The image suite's apps lowered on their baseline PE (one op a PE:
+    the most cells, so the largest pnr signatures of the suite)."""
+    from repro_torch.apps import image_graphs
+    from repro_torch.core import baseline_datapath, map_application
+    from repro_torch.core.dse import app_ops
+    from repro_torch.fabric import FabricSpec, extract_netlist, lower
+    spec = FabricSpec(rows=16, cols=16)
+    out = {}
+    for name, g in image_graphs().items():
+        nl = extract_netlist(map_application(baseline_datapath(app_ops(g)),
+                                             g, name), g, spec)
+        out[name] = lower(nl, spec.fit(len(nl.pe_cells), len(nl.io_cells)))
+    return out
+
+
+def _smem_mirror(n, w, e, k, stage):
+    # pnr_anneal_smem_bytes in csrc/pnr_anneal.cu, term by term: the pin
+    # table (N rows of W int32), slot_xy (E float2), ent_nets (E x K
+    # int32), then the chain's slot_of and occupant (E int32 each) and its
+    # per-net costs (N float32)
+    tables = n * w * 4 + e * 8 + e * k * 4 if stage else 0
+    return tables + e * 4 + e * 4 + n * 4
+
+
+def test_anneal_layout_fits_image_suite_largest_signature():
+    from repro_torch.fabric import batch_signature
+    sigs = {name: batch_signature(p, 32)
+            for name, p in _image_problems().items()}
+    # (steps, N, D, E, K) of camera on PE1, the largest signature of the
+    # image suite in chip_smoke.py's run
+    assert max(sigs.values()) == sigs["camera"] == (16384, 512, 32, 512, 4)
+    for sig in sigs.values():
+        _, n, d, e, k = sig
+        w, stage, smem = port.anneal_layout(n, d, e, k)
+        assert stage and w == max(8, (d + 4) // 4 * 4)
+        assert smem == _smem_mirror(n, w, e, k, stage)
+        assert smem <= port.SMEM_LIMIT == 227 * 1024
+
+
+def test_anneal_layout_shrinks_then_refuses():
+    # tables and chain exactly at 227 KB: staged; one net more: the chain
+    # reads the tables from global memory
+    w, stage, smem = port.anneal_layout(6400, 4, 64, 4)
+    assert stage and smem == port.SMEM_LIMIT
+    assert smem == _smem_mirror(6400, w, 64, 4, stage)
+    w, stage, smem = port.anneal_layout(6401, 4, 64, 4)
+    assert not stage and smem == _smem_mirror(6401, w, 64, 4, stage)
+    w, stage, smem = port.anneal_layout(4096, 32, 2048, 8)
+    assert not stage and smem == _smem_mirror(4096, w, 2048, 8, stage)
+    # one chain's state alone above 227 KB: a clear error
+    with pytest.raises(ValueError, match="227 KB"):
+        port.anneal_layout(20000, 4, 20000, 4)
