@@ -3,7 +3,9 @@
 Each ``csrc/*.cu`` source compiles, on first use, into a shared library
 with a plain C interface under ``build/kernels/`` at the repository root
 (or ``$REPRO_TORCH_BUILD_DIR``).  The library name carries a hash of the
-source and flags, so an edited source never loads a stale build.  Nothing
+source, the ``csrc/*.cuh`` headers it includes and the flags
+(:func:`build_tag`), so an edited source or header never loads a stale
+build.  Nothing
 here runs at import time: a host without ``nvcc`` or a card imports the
 package and runs the plain PyTorch versions.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -20,7 +23,7 @@ import threading
 from pathlib import Path
 from typing import Dict, Tuple
 
-__all__ = ["NVCC_FLAGS", "build", "load"]
+__all__ = ["NVCC_FLAGS", "build", "build_tag", "load"]
 
 #: sm_90a, no fast math, no FMA contraction (bit-exact float arithmetic)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -50,12 +53,32 @@ def _nvcc() -> str:
                        "toolkit (put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def build_tag(source: str, csrc: Path = _CSRC) -> str:
+    """The hash that names ``source``'s library: its bytes, those of every
+    header of ``csrc`` it includes (``#include "x.cuh"``, followed
+    through headers), and the flags."""
+    h = hashlib.sha256()
+    seen, todo = set(), [source]
+    while todo:
+        name = todo.pop(0)
+        if name in seen or not (csrc / name).is_file():
+            continue
+        seen.add(name)
+        text = (csrc / name).read_bytes()
+        h.update(name.encode() + b"\0" + text + b"\0")
+        todo += [m.decode() for m in _INCLUDE.findall(text)]
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
 def build(source: str) -> Tuple[Path, str]:
     """Compile ``csrc/<source>`` (if not built yet); returns the library
     path and the compiler's ``-Xptxas -v`` report."""
     src = _CSRC / source
-    text = src.read_bytes()
-    tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    tag = build_tag(source)
     out_dir = _build_dir()
     lib = out_dir / f"lib{src.stem}_{tag[:12]}.so"
     log = lib.with_suffix(".log")

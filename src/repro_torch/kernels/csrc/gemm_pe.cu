@@ -37,14 +37,13 @@
 // gemm.py; booleans are 0.0f / 1.0f.  It is not the simulator's ALU
 // table (csrc/sim_step.cu): shr/ashr here are a * exp2(-b).  The build's
 // --fmad=false keeps every epilogue op one IEEE rounding.
-//
-// gemm_pe_simt_kernel is the earlier SIMT float32 form (every multiply-add
-// a __fmaf_rn), kept for comparison only (gemm.py::_gemm_pe_simt).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 // outside the anonymous namespace: the extern "C" entry point takes a
 // struct Epilogue*, and a parameter of an internal-linkage type would
@@ -72,6 +71,8 @@ struct Epilogue {
 };
 
 namespace {
+
+using namespace hopper;
 
 // bfloat16 travels as its 16 bits: widening is a shift, exact
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -180,9 +181,6 @@ __device__ __forceinline__ void epi_init(const Epilogue& epi, float4* v) {
     }
 }
 
-// ---------------------------------------------------------------------------
-// tensor-core form (3xTF32 on wgmma)
-// ---------------------------------------------------------------------------
 constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, THREADS = 256;
 constexpr int GROUP_M = 8;
 // a stage: x's hi and lo tiles (BM rows), w's hi and lo tiles (BN rows),
@@ -192,70 +190,6 @@ static_assert(BM == BN && THREADS / 8 * 4 == BM,
               "a thread copies 4 rows of each tile, x and w alike");
 constexpr int STAGE_BYTES = 4 * TILE_BYTES;
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;   // + alignment
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// wgmma operand descriptor of a K-major tile of 128-byte rows, 128-byte
-// swizzled: 8-row groups 1024 bytes apart; the base is 1024-aligned, and a
-// step of 8 along K adds 32 bytes to the start address
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// d (64 x 128 of the warpgroup, 64 floats a thread) = a * b^T + (acc ? d :
-// 0); a: 64 rows, b: 128 rows, both 8 deep, TF32
-__device__ __forceinline__ void wgmma_tf32(float* d, uint64_t a, uint64_t b,
-                                           int acc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(acc));
-}
 
 // x (M, K) -> its TF32 parts (2, Mp, Kp), zero-padded; w (K, N) -> the
 // parts of its transpose (2, Np, Kp).  With `one` (bfloat16 operands,
@@ -364,11 +298,11 @@ gemm_pe_kernel(int M, int N, int Kp, int two, const float* __restrict__ xs,
     for (int kk = 0; kk < BK / 8; ++kk) {
       const uint64_t o = kk * 2;                 // 32 bytes, in 16s
       if (two) {
-        wgmma_tf32(d, al + o, bh + o, kk);       // small terms first
-        wgmma_tf32(d, ah + o, bl + o, 1);
-        wgmma_tf32(d, ah + o, bh + o, 1);
+        wgmma_tf32_ss<128>(d, al + o, bh + o, kk);   // small terms first
+        wgmma_tf32_ss<128>(d, ah + o, bl + o, 1);
+        wgmma_tf32_ss<128>(d, ah + o, bh + o, 1);
       } else {
-        wgmma_tf32(d, ah + o, bh + o, kk);
+        wgmma_tf32_ss<128>(d, ah + o, bh + o, kk);
       }
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -450,112 +384,6 @@ int dispatch_tc(int M, int N, int K, const void* x, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------------------------------------------
-// SIMT float32 form, kept for comparison
-// ---------------------------------------------------------------------------
-constexpr int S_BM = 128, S_BN = 128, S_BK = 8, S_TM = 8, S_TN = 8;
-
-// One 128x128 output tile per block of 256 threads, 8x8 outputs per
-// thread, K in steps of 8 through shared memory with the next step's
-// global loads issued before the current step's arithmetic; __fmaf_rn
-// keeps each multiply-add one rounding under --fmad=false.
-template <typename T, typename TOut, bool EPI>
-__global__ void __launch_bounds__(THREADS)
-gemm_pe_simt_kernel(int M, int N, int K, const T* __restrict__ x,
-                    const T* __restrict__ w, TOut* __restrict__ out,
-                    const Epilogue epi) {
-  // +4 floats a row: conflict-free transposed stores of the x tile, and
-  // rows stay 16-byte aligned for the float4 reads
-  __shared__ __align__(16) float As[S_BK][S_BM + 4];
-  __shared__ __align__(16) float Bs[S_BK][S_BN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * S_BM, n0 = blockIdx.x * S_BN;
-
-  float acc[S_TM][S_TN];
-#pragma unroll
-  for (int i = 0; i < S_TM; ++i)
-#pragma unroll
-    for (int j = 0; j < S_TN; ++j) acc[i][j] = 0.0f;
-
-  // each thread stages 4 elements of the x tile and 4 of the w tile
-  float ra[4], rb[4];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + i * THREADS;
-      const int r = idx / S_BK, c = idx % S_BK;   // x tile: BM x BK
-      const int gm = m0 + r, gk = k0 + c;
-      ra[i] = (gm < M && gk < K) ? to_f32(x[(size_t)gm * K + gk]) : 0.0f;
-      const int r2 = idx / S_BN, c2 = idx % S_BN; // w tile: BK x BN
-      const int gk2 = k0 + r2, gn = n0 + c2;
-      rb[i] = (gk2 < K && gn < N) ? to_f32(w[(size_t)gk2 * N + gn]) : 0.0f;
-    }
-  };
-
-  fetch(0);
-  for (int k0 = 0; k0 < K; k0 += S_BK) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + i * THREADS;
-      As[idx % S_BK][idx / S_BK] = ra[i];
-      Bs[idx / S_BN][idx % S_BN] = rb[i];
-    }
-    __syncthreads();
-    if (k0 + S_BK < K) fetch(k0 + S_BK);
-#pragma unroll
-    for (int kk = 0; kk < S_BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * S_TM]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[kk][ty * S_TM + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * S_TN]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[kk][tx * S_TN + 4]);
-      const float a[S_TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[S_TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < S_TM; ++i)
-#pragma unroll
-        for (int j = 0; j < S_TN; ++j)
-          acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float4 v[EPI ? MAX_SLOTS : 1];
-  epi_init<EPI>(epi, v);
-#pragma unroll
-  for (int i = 0; i < S_TM; ++i) {
-    const int gm = m0 + ty * S_TM + i;
-    if (gm >= M) break;
-#pragma unroll
-    for (int j = 0; j < S_TN; ++j) {
-      const int gn = n0 + tx * S_TN + j;
-      if (gn >= N) break;
-      const size_t o = (size_t)gm * N + gn;
-      store_out(out, o, epi_eval<EPI>(epi, v, make_float4(acc[i][j], 0.0f,
-                                                          0.0f, 0.0f),
-                                      o, gn, 1).x);
-    }
-  }
-}
-
-template <typename T, typename TOut>
-int dispatch_simt(int M, int N, int K, const void* x, const void* w,
-                  void* out, const Epilogue& epi, cudaStream_t stream) {
-  const dim3 grid((N + S_BN - 1) / S_BN, (M + S_BM - 1) / S_BM);
-  const bool has_epi = epi.n_ops > 0 || epi.out != 0;
-  if (has_epi)
-    gemm_pe_simt_kernel<T, TOut, true><<<grid, THREADS, 0, stream>>>(
-        M, N, K, static_cast<const T*>(x), static_cast<const T*>(w),
-        static_cast<TOut*>(out), epi);
-  else
-    gemm_pe_simt_kernel<T, TOut, false><<<grid, THREADS, 0, stream>>>(
-        M, N, K, static_cast<const T*>(x), static_cast<const T*>(w),
-        static_cast<TOut*>(out), epi);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -579,22 +407,6 @@ int gemm_pe_launch(int M, int N, int K, const void* x, const void* w,
                                                       out, *epi, s)
                   : dispatch_tc<float, float>(M, N, K, x, w, xs, ws, out,
                                               *epi, s);
-}
-
-// The same on the SIMT float32 form (M < 65536 * 128), no scratch.
-int gemm_pe_simt_launch(int M, int N, int K, const void* x, const void* w,
-                        void* out, int in_bf16, int out_bf16,
-                        const Epilogue* epi, void* stream) {
-  if (M <= 0 || N <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_bf16)
-    return out_bf16 ? dispatch_simt<uint16_t, __nv_bfloat16>(M, N, K, x, w,
-                                                             out, *epi, s)
-                    : dispatch_simt<uint16_t, float>(M, N, K, x, w, out, *epi,
-                                                     s);
-  return out_bf16 ? dispatch_simt<float, __nv_bfloat16>(M, N, K, x, w, out,
-                                                         *epi, s)
-                  : dispatch_simt<float, float>(M, N, K, x, w, out, *epi, s);
 }
 
 // (opcodes, max ops, max slots, max extras, tile M, N, K), checked by

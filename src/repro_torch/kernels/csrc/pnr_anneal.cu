@@ -28,10 +28,6 @@
 //   ahead, and broadcast with shuffles;
 // - the best placement is written out when the chain leaves it, not at
 //   every improvement.
-// anneal_global_kernel is the earlier form (tables in global memory, a
-// net's pins read one by one with their mask, duplicates found by
-// rereading earlier entries), kept for comparison
-// (pnr_cost.py::_anneal_chains_global).
 //
 // Arithmetic: every HPWL is an integer-valued float32 far below 2^24, so
 // per-net costs, their sums and deltas are exact in any order; the
@@ -359,138 +355,6 @@ __global__ void anneal_kernel(
              best_out + r, accepts_out + r, curve_r);
 }
 
-// K2's earlier form: one warp per chain r (block r), the tables read from
-// global memory.  Streams a/t/log_u are per chain (R, S); temps/active per
-// problem (P, S).
-__global__ void anneal_global_kernel(
-    int S, int N, int D, int E, int K, int full, int telemetry,
-    const int* __restrict__ prob, const float* __restrict__ slot_xy,
-    const int* __restrict__ net_pins, const uint8_t* __restrict__ net_mask,
-    const int* __restrict__ ent_nets, const float* __restrict__ temps,
-    const uint8_t* __restrict__ active, const int* __restrict__ A,
-    const int* __restrict__ T, const float* __restrict__ log_u,
-    const int* __restrict__ slot0, const float* __restrict__ pnc0,
-    int* __restrict__ best_slot_out, float* __restrict__ best_out,
-    int* __restrict__ accepts_out, float* __restrict__ curve_out) {
-  extern __shared__ float4 smem4[];
-  float2* xy = reinterpret_cast<float2*>(smem4);          // E
-  int* slot_of = reinterpret_cast<int*>(xy + E);           // E
-  int* occ = slot_of + E;                                  // E
-  int* best_slot = occ + E;                                // E
-  float* pnc = reinterpret_cast<float*>(best_slot + E);    // N
-  float* curve = pnc + N;                                  // CURVE_POINTS
-
-  const int r = blockIdx.x, lane = threadIdx.x;
-  const long long p = prob[r];
-  const int* pins_p = net_pins + p * N * D;
-  const uint8_t* mask_p = net_mask + p * N * D;
-  const int* en_p = ent_nets + p * E * K;
-  const float* temps_p = temps + p * S;
-  const uint8_t* active_p = active + p * S;
-  const int* A_r = A + (long long)r * S;
-  const int* T_r = T + (long long)r * S;
-  const float* lu_r = log_u + (long long)r * S;
-
-  for (int e = lane; e < E; e += 32) {
-    int s = slot0[(long long)r * E + e];
-    slot_of[e] = s;
-    best_slot[e] = s;
-    occ[s] = e;
-    xy[e] = reinterpret_cast<const float2*>(slot_xy + p * E * 2)[e];
-  }
-  float part = 0.0f;
-  for (int n = lane; n < N; n += 32) {
-    float c = pnc0[(long long)r * N + n];
-    pnc[n] = c;
-    part += c;
-  }
-  if (lane < CURVE_POINTS) curve[lane] = 0.0f;
-  float cur = warp_sum(part);      // exact: integer-valued costs
-  float best = cur;
-  int n_acc = 0;
-  __syncwarp();
-
-  const int T2 = 2 * K;
-  for (int i = 0; i < S; ++i) {
-    const int a = A_r[i], t = T_r[i];
-    const int b = occ[t];
-    const int sa = slot_of[a], sb = slot_of[b];
-    float newc;
-    int tn[MAX_TOUCH_PER_LANE];
-    float nv[MAX_TOUCH_PER_LANE];
-    if (full) {
-      float acc = 0.0f;
-      for (int n = lane; n < N; n += 32)
-        acc += net_cost(pins_p + (long long)n * D, mask_p + (long long)n * D,
-                        D, slot_of, xy, true, a, b, sa, sb);
-      newc = warp_sum(acc);
-    } else {
-      float acc = 0.0f;
-#pragma unroll
-      for (int k = 0; k < MAX_TOUCH_PER_LANE; ++k) {
-        int j = lane + 32 * k;
-        tn[k] = N;
-        nv[k] = 0.0f;
-        if (j >= T2) continue;
-        int n = (j < K) ? en_p[(long long)a * K + j]
-                        : en_p[(long long)b * K + (j - K)];
-        // a later duplicate of an earlier entry becomes N (dup_tri rule)
-        for (int jj = 0; jj < j && n < N; ++jj) {
-          int m = (jj < K) ? en_p[(long long)a * K + jj]
-                           : en_p[(long long)b * K + (jj - K)];
-          if (m == n) n = N;
-        }
-        if (n >= N) continue;
-        tn[k] = n;
-        nv[k] = net_cost(pins_p + (long long)n * D,
-                         mask_p + (long long)n * D, D, slot_of, xy, true, a,
-                         b, sa, sb);
-        acc += nv[k] - pnc[n];
-      }
-      newc = cur + warp_sum(acc);
-    }
-    const bool accept = ((newc <= cur) || (lu_r[i] * temps_p[i] < cur - newc))
-                        && active_p[i];
-    __syncwarp();                  // every lane has read the pre-move state
-    if (accept) {
-      if (!full) {
-#pragma unroll
-        for (int k = 0; k < MAX_TOUCH_PER_LANE; ++k)
-          if (tn[k] < N) pnc[tn[k]] = nv[k];
-      }
-      if (lane == 0) {
-        slot_of[a] = sb;
-        slot_of[b] = sa;
-        occ[sb] = a;
-        occ[sa] = b;
-      }
-      cur = newc;
-    }
-    __syncwarp();
-    if (cur < best) {
-      best = cur;
-      for (int e = lane; e < E; e += 32) best_slot[e] = slot_of[e];
-    }
-    if (telemetry) {
-      n_acc += accept ? 1 : 0;
-      if (lane == 0) {
-        int idx = (int)(((long long)i * CURVE_POINTS) / S);
-        curve[idx < CURVE_POINTS - 1 ? idx : CURVE_POINTS - 1] = cur;
-      }
-    }
-    __syncwarp();
-  }
-
-  for (int e = lane; e < E; e += 32)
-    best_slot_out[(long long)r * E + e] = best_slot[e];
-  if (lane == 0) {
-    best_out[r] = best;
-    if (telemetry) accepts_out[r] = n_acc;
-  }
-  if (telemetry && lane < CURVE_POINTS)
-    curve_out[(long long)r * CURVE_POINTS + lane] = curve[lane];
-}
-
 extern "C" {
 
 int pnr_net_hpwl(int R, int N, int D, int E, const void* prob,
@@ -534,39 +398,6 @@ int pnr_anneal(int R, int S, int N, int W, int E, int K, int stage, int full,
     anneal_kernel<<<R, 32, (size_t)smem, (cudaStream_t)stream>>>(
         S, N, W, E, K, stage, full, telemetry, (const int*)prob,
         (const float*)slot_xy, (const int*)pin_tab, (const int*)ent_nets,
-        (const float*)temps, (const uint8_t*)active, (const int*)A,
-        (const int*)T, (const float*)log_u, (const int*)slot0,
-        (const float*)pnc0, (int*)best_slot, (float*)best, (int*)accepts,
-        (float*)curve);
-  }
-  return (int)cudaGetLastError();
-}
-
-long long pnr_anneal_global_smem_bytes(int N, int E) {
-  return (long long)E * 8 + (long long)E * 12 + (long long)N * 4
-         + CURVE_POINTS * 4;
-}
-
-int pnr_anneal_global(int R, int S, int N, int D, int E, int K, int full,
-                      int telemetry, const void* prob, const void* slot_xy,
-                      const void* net_pins, const void* net_mask,
-                      const void* ent_nets, const void* temps,
-                      const void* active, const void* A, const void* T,
-                      const void* log_u, const void* slot0,
-                      const void* pnc0, void* best_slot, void* best,
-                      void* accepts, void* curve, void* stream) {
-  long long smem = pnr_anneal_global_smem_bytes(N, E);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        anneal_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (R > 0) {
-    anneal_global_kernel<<<R, 32, (size_t)smem, (cudaStream_t)stream>>>(
-        S, N, D, E, K, full, telemetry, (const int*)prob,
-        (const float*)slot_xy, (const int*)net_pins,
-        (const uint8_t*)net_mask, (const int*)ent_nets,
         (const float*)temps, (const uint8_t*)active, (const int*)A,
         (const int*)T, (const float*)log_u, (const int*)slot0,
         (const float*)pnc0, (int*)best_slot, (float*)best, (int*)accepts,

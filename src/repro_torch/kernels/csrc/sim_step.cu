@@ -6,20 +6,44 @@
 // compute-all-select ALU step (kernels/sim_step.py, `_build_step_kernel`,
 // masked as `alu_step_masked`), which is the device function `alu` below.
 // One block runs one (program, input row) through every cycle of the
-// bucket, keeping the machine state resident for the whole run:
-// double-buffered ext/sig/wire registers, the latch FIFOs and the operand
-// buffer [latch view | const | tmp].  The state lives in shared memory, or,
-// when it exceeds the 227 KB a block can opt into (or the caller asks for
-// it), in a global scratch buffer: the same kernel body either way.
+// bucket, keeping the machine state resident for the whole run: the
+// ext/sig registers, double-buffered wire registers, the latch FIFOs and
+// the operand buffer [latch view | const | tmp].  The state lives in
+// shared memory, or, when it exceeds the 227 KB a block can opt into (or
+// the caller asks for it), in a global scratch buffer: the same kernel
+// body either way.
 //
-// Per cycle: (1) every latch's FIFO slot for the iteration its consumer
-// executes goes into the operand buffer; (2) each tile runs its micro-ops
-// in order on one thread (operands only ever read the tile's own tmp
-// slots; the wrapper checks this), inactive lanes and steps retire 0.0;
-// (3) sig/ext/wire registers load from the old state into the other
-// buffer, arriving words enter the latch FIFOs, outputs are captured
-// straight to global memory.  Three block barriers a cycle.  The chain of
-// dependent cycles sets the pace; bytes and operations are far below it.
+// Bound: a chain of dependent cycles, each three block barriers, sets the
+// pace; bytes and operations are far below it.  So the design shortens a
+// cycle:
+// - Events, not tests.  An entity (tile, signal, ext, latch or output
+//   capture) with first event t0 fires at t0 + k*II for k < K, so only
+//   those with t0 = c (mod II) can fire at cycle c.  The wrapper sorts
+//   them once into per-phase lists of (index, t0 div II) (event_lists in
+//   sim_step.py); cycle c = m*II + b walks list b and fires the entries
+//   with 0 <= m - (t0 div II) < K, at k = m - (t0 div II): no division
+//   and no test of an entity of another phase.  A tile that does not fire
+//   at c computes nothing: its results reach the machine only through the
+//   signals it owns, which load only when it fires (the wrapper checks
+//   that a signal reads its owner's tmp slots).
+// - ext and sig registers change only at their events, so they are single
+//   buffers written after the cycle's readers (phase A of the next cycle);
+//   wires still copy every cycle, double-buffered.
+// - A micro-op is one 16-byte table entry {global op id, 3 operands}: the
+//   wrapper folds the bucket's opcode table into it.
+// - Up to 1024 threads a block, so a phase has few iterations a thread.
+//
+// The block stages its program's event lists in shared memory, beside
+// the state.  Per cycle c, three barriers: (A) the signals and exts
+// loaded at c - 1 take their values, and the tiles firing at c refresh
+// the latch views they read (the FIFO slot of the iteration their latch's
+// consumer executes); (B) the tiles firing at c run their micro-ops in
+// order, one thread a tile (tmp rebuilt from zeros; operands read only
+// the tile's own tmp slots, checked by the wrapper); (C) every wire loads
+// from the old state into the other buffer, arriving words enter the
+// latch FIFOs, outputs are captured straight to global memory.  With
+// `empty` set the loop keeps its barriers and walks its event lists but
+// moves no value: the floor of a cycle.
 //
 // Arithmetic follows the JAX package's simulator under XLA's CPU backend
 // bit for bit on every IEEE-exact op: NaN-propagating min/max with -0 < +0,
@@ -33,7 +57,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#define THREADS 256
+#define MAX_THREADS 1024
 #define SMEM_LIMIT 232448
 
 // global op ids: the order of ALU_IMPLS in kernels/sim_step.py
@@ -44,6 +68,9 @@ enum AluOp {
   OP_ROUND, OP_EXP, OP_LOG, OP_TANH, OP_SIGMOID, OP_RSQRT, OP_SQRT, OP_POW,
   N_OPS
 };
+
+// event kinds, the order of the wrapper's lists (sim_step.py EVENT_KINDS)
+enum EvKind { EV_TILE, EV_SIG, EV_EXT, EV_LATCH, EV_OUT, N_EV };
 
 // 2**b: exact for integer b (from the exponent bits), powf otherwise.
 __device__ __forceinline__ float pow2f(float b) {
@@ -112,146 +139,191 @@ __device__ float alu(int op, float a, float b, float c) {
   }
 }
 
-// A period-II event train starting at t0: fires at t0 + k*II for k < K.
-// `k` comes back clipped to [0, K-1].  C's truncating `/` differs from
-// the reference's floor division only for d < 0, where both clip to 0.
-__device__ __forceinline__ bool periodic(int c, int t0, int ii, int K,
-                                         int* k) {
-  int d = c - t0;
-  int q = d / ii;
-  *k = q < 0 ? 0 : (q > K - 1 ? K - 1 : q);
-  return d >= 0 && d % ii == 0 && q < K;
-}
+struct Args {
+  int B, K, cycles, D, ip, up, ep, sp, wp, lp, cp, op, nb, ev_cap;
+  long long state_floats;
+  int use_global, empty;
+  const int* ii;           // (G,)
+  const int* dims;         // (G, 2): n_steps, n_inst
+  const int4* steps;       // (G, ip, up): {op id, a, b, c}
+  const float* const_pool; // (G, cp)
+  const int* fire_time;    // (G, ip)
+  const int* wire_src;     // (G, wp)
+  const int* sig_tmp;      // (G, sp)
+  const int* latch_wire;   // (G, lp)
+  const int* latch_owner;  // (G, lp)
+  const int* out_wire;     // (G, op)
+  const int2* ev;          // event entries {index, t0 div II}; at most
+                           // ev_cap of them a program
+  const int* ev_off;       // (N_EV, G, nb): list b of program g is
+                           // ev[o[b] .. o[b + 1])
+  const float* inputs;     // (G, B, K, ep)
+  float* outbuf;           // (G, B, K, op)
+  float* scratch;          // global state (use_global)
+};
 
-__global__ void __launch_bounds__(THREADS) sim_stepper_kernel(
-    int B, int K, int cycles, int D, int ip, int up, int ep, int sp, int wp,
-    int lp, int cp, int op, long long state_floats, int use_global,
-    const int* __restrict__ ii_g, const int* __restrict__ dims_g,
-    const int* __restrict__ opcodes_g, const int* __restrict__ op_src_g,
-    const float* __restrict__ const_pool_g,
-    const int* __restrict__ fire_time_g, const int* __restrict__ ext_time_g,
-    const int* __restrict__ wire_src_g, const int* __restrict__ sig_tmp_g,
-    const int* __restrict__ sig_owner_g, const int* __restrict__ latch_wire_g,
-    const int* __restrict__ latch_time_g,
-    const int* __restrict__ latch_owner_g,
-    const int* __restrict__ out_wire_g, const int* __restrict__ out_time_g,
-    const int* __restrict__ op_ids, const float* __restrict__ inputs,
-    float* __restrict__ outbuf, float* __restrict__ scratch) {
+__global__ void __launch_bounds__(MAX_THREADS)
+sim_stepper_kernel(const Args a) {
   extern __shared__ float smem[];
-  const int g = blockIdx.x / B;
-  const int tid = threadIdx.x;
-  float* st = use_global ? scratch + (long long)blockIdx.x * state_floats
-                         : smem;
+  const int g = blockIdx.x / a.B;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int K = a.K, D = a.D, up = a.up, sp = a.sp, ep = a.ep;
+  const int lp = a.lp, cp = a.cp, wp = a.wp, op = a.op;
+  float* st = a.use_global
+                  ? a.scratch + (long long)blockIdx.x * a.state_floats
+                  : smem;
   float* ext = st;
-  float* ext_n = ext + ep;
-  float* sig = ext_n + ep;
-  float* sig_n = sig + sp;
-  float* wire = sig_n + sp;
+  float* sig = ext + ep;
+  float* wire = sig + sp;
   float* wire_n = wire + wp;
   float* latch = wire_n + wp;          // lp x D
   float* opnd = latch + lp * D;        // [latch view lp | const cp | tmp]
   const int tmp_off = lp + cp;
 
-  const int ii = ii_g[g];
-  const int n_steps = min(dims_g[2 * g], up);
-  const int n_inst = dims_g[2 * g + 1];
-  const int* opcodes = opcodes_g + (long long)g * ip * up;
-  const int* op_src = op_src_g + (long long)g * ip * up * 3;
-  const float* const_pool = const_pool_g + (long long)g * cp;
-  const int* fire_time = fire_time_g + (long long)g * ip;
-  const int* ext_time = ext_time_g + (long long)g * ep;
-  const int* wire_src = wire_src_g + (long long)g * wp;
-  const int* sig_tmp = sig_tmp_g + (long long)g * sp;
-  const int* sig_owner = sig_owner_g + (long long)g * sp;
-  const int* latch_wire = latch_wire_g + (long long)g * lp;
-  const int* latch_time = latch_time_g + (long long)g * lp;
-  const int* latch_owner = latch_owner_g + (long long)g * lp;
-  const int* out_wire = out_wire_g + (long long)g * op;
-  const int* out_time = out_time_g + (long long)g * op;
-  const float* in_row = inputs + (long long)blockIdx.x * K * ep;
-  float* out_row = outbuf + (long long)blockIdx.x * K * op;
+  const int ii = a.ii[g];
+  const int n_steps = min(a.dims[2 * g], up);
+  const int4* steps = a.steps + (long long)g * a.ip * up;
+  const float* const_pool = a.const_pool + (long long)g * cp;
+  const int* fire_time = a.fire_time + (long long)g * a.ip;
+  const int* wire_src = a.wire_src + (long long)g * wp;
+  const int* sig_tmp = a.sig_tmp + (long long)g * sp;
+  const int* latch_wire = a.latch_wire + (long long)g * lp;
+  const int* latch_owner = a.latch_owner + (long long)g * lp;
+  const int* out_wire = a.out_wire + (long long)g * op;
+  const float* in_row = a.inputs + (long long)blockIdx.x * K * ep;
+  float* out_row = a.outbuf + (long long)blockIdx.x * K * op;
+  const int G = gridDim.x / a.B, nb = a.nb;
+  const bool live = !a.empty;
+
+  // this program's event lists, staged in shared memory after the state
+  // (or alone): entries ev_s, list b of kind j at off_s[j * nb + b]
+  int2* ev_s = reinterpret_cast<int2*>(
+      smem + (a.use_global ? 0 : (a.state_floats + 1) / 2 * 2));
+  int* off_s = reinterpret_cast<int*>(ev_s + a.ev_cap);
+  for (int j = 0, base = 0; j < N_EV; ++j) {
+    const int* o = a.ev_off + ((long long)j * G + g) * nb;
+    const int first = o[0], n_j = o[nb - 1] - first;
+    for (int b = tid; b < nb; b += nt) off_s[j * nb + b] = o[b] - first + base;
+    for (int e = tid; e < n_j; e += nt) ev_s[base + e] = a.ev[first + e];
+    base += n_j;
+  }
+
+  // every entry of phase list b of `kind` firing at iteration m: f(x, k)
+  auto walk = [&](int kind, int b, int m, auto&& f) {
+    const int* o = off_s + kind * nb + b;
+    for (int e = o[0] + tid; e < o[1]; e += nt) {
+      const int2 v = ev_s[e];
+      const int k = m - v.y;
+      if (k >= 0 && k < K && live) f(v.x, k);
+    }
+  };
 
   // all state zero, constants in place (they are never overwritten)
   const long long const_at = (long long)(opnd - st) + lp;
-  for (long long i = tid; i < state_floats; i += THREADS) {
+  for (long long i = tid; i < a.state_floats; i += nt) {
     long long j = i - const_at;
     st[i] = (j >= 0 && j < cp) ? const_pool[j] : 0.0f;
   }
   __syncthreads();
 
-  for (int c = 0; c < cycles; ++c) {
-    int k;
-    // (1) each consumer reads the FIFO slot of the iteration it executes
-    for (int l = tid; l < lp; l += THREADS) {
-      periodic(c, fire_time[latch_owner[l]], ii, K, &k);
-      opnd[l] = latch[l * D + k % D];
+  int b = 0, m = 0, pb = 0, pm = 0;    // cycle c = m * ii + b; c - 1
+  for (int c = 0; c < a.cycles; ++c) {
+    // (A) registers loaded at c - 1; latch views of the tiles firing at c
+    if (c > 0) {
+      walk(EV_SIG, pb, pm, [&](int s, int) {
+        sig[s] = opnd[tmp_off + sig_tmp[s]];
+      });
+      walk(EV_EXT, pb, pm, [&](int e, int k) {
+        ext[e] = in_row[(long long)k * ep + e];
+      });
     }
+    walk(EV_TILE, b, m, [&](int i, int) {
+      for (int u = 0; u < n_steps; ++u) {
+        const int4 s = steps[i * up + u];
+        const int src[3] = {s.y, s.z, s.w};
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const int l = src[j];
+          if (l >= lp) continue;
+          // the slot of the iteration the latch's consumer executes; C's
+          // truncating `/` differs from floor only for d < 0, clipped to
+          // 0 either way
+          const int d = c - fire_time[latch_owner[l]];
+          const int q = d / ii;
+          const int kv = q < 0 ? 0 : (q > K - 1 ? K - 1 : q);
+          opnd[l] = latch[l * D + kv % D];
+        }
+      }
+    });
     __syncthreads();
 
-    // (2) tiles compute in lockstep; each tile's steps in order, tmp
-    // rebuilt from zeros every cycle
-    for (int i = tid; i < ip; i += THREADS) {
+    // (B) the tiles firing at c, each its micro-ops in order
+    walk(EV_TILE, b, m, [&](int i, int) {
       float* tmp = opnd + tmp_off + i * up;
       for (int u = 0; u < up; ++u) tmp[u] = 0.0f;
-      if (i >= n_inst) continue;
       for (int u = 0; u < n_steps; ++u) {
-        const int* src = op_src + (i * up + u) * 3;
-        tmp[u] = alu(op_ids[opcodes[i * up + u]], opnd[src[0]],
-                     opnd[src[1]], opnd[src[2]]);
+        const int4 s = steps[i * up + u];
+        tmp[u] = alu(s.x, opnd[s.y], opnd[s.z], opnd[s.w]);
       }
-    }
+    });
     __syncthreads();
 
-    // (3) registers load from the old state; latches and captures
-    for (int s = tid; s < sp; s += THREADS)
-      sig_n[s] = periodic(c, fire_time[sig_owner[s]], ii, K, &k)
-                     ? opnd[tmp_off + sig_tmp[s]] : sig[s];
-    for (int e = tid; e < ep; e += THREADS)
-      ext_n[e] = periodic(c, ext_time[e], ii, K, &k)
-                     ? in_row[(long long)k * ep + e] : ext[e];
-    for (int w = tid; w < wp; w += THREADS) {
-      const int s = wire_src[w];
-      wire_n[w] = s < sp ? sig[s]
-                         : (s < sp + ep ? ext[s - sp] : wire[s - sp - ep]);
-    }
-    for (int l = tid; l < lp; l += THREADS)
-      if (periodic(c, latch_time[l], ii, K, &k))
-        latch[l * D + k % D] = wire[latch_wire[l]];
-    for (int o = tid; o < op; o += THREADS)
-      if (periodic(c, out_time[o], ii, K, &k))
-        out_row[(long long)k * op + o] = wire[out_wire[o]];
+    // (C) wires from the old state; latches and captures
+    if (live)
+      for (int w = tid; w < wp; w += nt) {
+        const int s = wire_src[w];
+        wire_n[w] = s < sp ? sig[s]
+                           : (s < sp + ep ? ext[s - sp] : wire[s - sp - ep]);
+      }
+    walk(EV_LATCH, b, m, [&](int l, int k) {
+      latch[l * D + k % D] = wire[latch_wire[l]];
+    });
+    walk(EV_OUT, b, m, [&](int o, int k) {
+      out_row[(long long)k * op + o] = wire[out_wire[o]];
+    });
     __syncthreads();
 
-    float* t;
-    t = ext; ext = ext_n; ext_n = t;
-    t = sig; sig = sig_n; sig_n = t;
-    t = wire; wire = wire_n; wire_n = t;
+    float* t = wire; wire = wire_n; wire_n = t;
+    pb = b;
+    pm = m;
+    if (++b == ii) {
+      b = 0;
+      ++m;
+    }
   }
 }
 
 // floats of state per block; kernels/sim_step.py::stepper_state_bytes / 4
 static long long sim_state_floats(int ip, int up, int ep, int sp, int wp,
                                   int lp, int cp, int D) {
-  return 2LL * (ep + sp + wp) + (long long)lp * D + lp + cp
+  return (long long)ep + sp + 2LL * wp + (long long)lp * D + lp + cp
          + (long long)ip * up;
+}
+
+// The launch's threads a block: enough that the widest per-cycle loop
+// (the wires) takes a few iterations a thread.
+static int sim_threads(int wp) {
+  int t = 128;
+  while (t < MAX_THREADS && t * 4 < wp) t *= 2;
+  return t;
 }
 
 extern "C" {
 
 int sim_stepper(int G, int B, int K, int cycles, int D, int ip, int up,
-                int ep, int sp, int wp, int lp, int cp, int op,
-                int use_global, const void* ii, const void* dims,
-                const void* opcodes, const void* op_src,
-                const void* const_pool, const void* fire_time,
-                const void* ext_time, const void* wire_src,
-                const void* sig_tmp, const void* sig_owner,
-                const void* latch_wire, const void* latch_time,
+                int ep, int sp, int wp, int lp, int cp, int op, int nb,
+                int ev_cap, int use_global, int empty, const void* ii,
+                const void* dims,
+                const void* steps, const void* const_pool,
+                const void* fire_time, const void* wire_src,
+                const void* sig_tmp, const void* latch_wire,
                 const void* latch_owner, const void* out_wire,
-                const void* out_time, const void* op_ids,
-                const void* inputs, void* outbuf, void* scratch,
-                void* stream) {
+                const void* ev, const void* ev_off, const void* inputs,
+                void* outbuf, void* scratch, void* stream) {
   long long floats = sim_state_floats(ip, up, ep, sp, wp, lp, cp, D);
-  long long smem = use_global ? 0 : floats * 4;
+  // the state (shared placement), then the event lists and offsets
+  long long smem = (use_global ? 0 : (floats + 1) / 2 * 8)
+                   + 8LL * ev_cap + 4LL * N_EV * nb;
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -259,18 +331,16 @@ int sim_stepper(int G, int B, int K, int cycles, int D, int ip, int up,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  if ((long long)G * B > 0) {
-    sim_stepper_kernel<<<(unsigned)(G * B), THREADS, (size_t)smem,
-                         (cudaStream_t)stream>>>(
-        B, K, cycles, D, ip, up, ep, sp, wp, lp, cp, op, floats, use_global,
-        (const int*)ii, (const int*)dims, (const int*)opcodes,
-        (const int*)op_src, (const float*)const_pool,
-        (const int*)fire_time, (const int*)ext_time, (const int*)wire_src,
-        (const int*)sig_tmp, (const int*)sig_owner, (const int*)latch_wire,
-        (const int*)latch_time, (const int*)latch_owner,
-        (const int*)out_wire, (const int*)out_time, (const int*)op_ids,
-        (const float*)inputs, (float*)outbuf, (float*)scratch);
-  }
+  Args a{B, K, cycles, D, ip, up, ep, sp, wp, lp, cp, op, nb, ev_cap, floats,
+         use_global, empty, (const int*)ii, (const int*)dims,
+         (const int4*)steps, (const float*)const_pool,
+         (const int*)fire_time, (const int*)wire_src, (const int*)sig_tmp,
+         (const int*)latch_wire, (const int*)latch_owner,
+         (const int*)out_wire, (const int2*)ev, (const int*)ev_off,
+         (const float*)inputs, (float*)outbuf, (float*)scratch};
+  if ((long long)G * B > 0)
+    sim_stepper_kernel<<<(unsigned)(G * B), sim_threads(wp), (size_t)smem,
+                         (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

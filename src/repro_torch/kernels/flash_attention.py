@@ -1,8 +1,10 @@
 """Flash attention (K6): GQA, causal, sliding window, softcap.
 
 Kernel K6 (``flash_attention_kernel``, CUDA C++ for sm_90a in
-``csrc/flash_attention.cu``) replaces the reference's Pallas
-``_attn_kernel`` (``repro/kernels/flash_attention.py``): q is scaled by
+``csrc/flash_attention.cu``, both products on the tensor cores: bfloat16
+``wgmma`` for bfloat16 inputs, 3xTF32 ``wgmma`` for float32) replaces the
+reference's Pallas ``_attn_kernel`` (``repro/kernels/flash_attention.py``):
+q is scaled by
 ``scale`` (default ``1/sqrt(D)``), query head ``h`` reads kv head
 ``h // (Hq/Hkv)``, ``s = q k^T`` (soft-capped as ``softcap * tanh(s /
 softcap)`` when ``softcap`` is set), keys outside the causal and window
@@ -108,14 +110,22 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, copied if its data does not start on 16 bytes (K6 reads
+    rows in 16-byte pieces)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _lib():
     from .build import load
     lib = load(_SOURCE)
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_launch.argtypes = [i, i, i, i, i, p, p, p, p, i,
-                                               i, i, f, f, p]
+        lib.flash_attention_launch.argtypes = [i, i, i, i, i, p, p, p, p, p,
+                                               i, i, i, f, f, p]
         lib.flash_attention_launch.restype = i
+        lib.flash_attention_scratch_floats.argtypes = [i, i, i, i]
+        lib.flash_attention_scratch_floats.restype = ctypes.c_longlong
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -133,8 +143,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     Operands (tensors or arrays) are moved to ``device``: K6 on the card
     (the default; raises without one; float32 or bfloat16, all three of
     one dtype, D <= 128), the plain version on ``device="cpu"``.  ``bq``
-    and ``bk`` are the reference's tile sizes: K6's tiles are 64 x 64 and
-    ignore them; the plain version steps over keys ``bk`` at a time.
+    and ``bk`` are the reference's tile sizes: K6 picks its own (128 query
+    rows, 32 or 64 keys) and ignores them; the plain version steps over
+    keys ``bk`` at a time.
     """
     dev = resolve_device(device)
     q, k, v = (torch.as_tensor(t, device=dev) for t in (q, k, v))
@@ -150,21 +161,33 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"head dim {d} exceeds K6's {MAX_HEAD_DIM}")
     if b > 65535 or hq > 65535:
         raise ValueError(f"B = {b} or Hq = {hq} exceeds K6's grid (65535)")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    scale = float(scale or 1.0 / math.sqrt(d))
+    dp = d
+    if q.dtype == torch.bfloat16 and d % 8:
+        # 16-byte copies of whole rows: zero columns change no score and
+        # give output columns that are cut off below
+        dp = d + 8 - d % 8
+        q, k, v = (torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v))
+    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
-        return out
+        return out[..., :d]
     lib = _lib()
+    dt = _DTYPES[q.dtype]
+    scratch = torch.empty(
+        (max(1, lib.flash_attention_scratch_floats(b * k.shape[1], s, dp,
+                                                   dt)),),
+        dtype=torch.float32, device=dev)
     rc = lib.flash_attention_launch(
-        b, hq, k.shape[1], s, d, _ptr(q), _ptr(k), _ptr(v), _ptr(out),
-        _DTYPES[q.dtype], int(bool(causal)), int(window), float(softcap),
-        float(scale or 1.0 / math.sqrt(d)), _stream(dev))
+        b, hq, k.shape[1], s, dp, _ptr(q), _ptr(k), _ptr(v), _ptr(scratch),
+        _ptr(out), dt, int(bool(causal)), int(window), float(softcap), scale,
+        _stream(dev))
     if rc != 0:
         raise RuntimeError(
             f"flash_attention_kernel failed to launch: CUDA error {rc} "
             f"({lib.flash_attention_error_string(rc).decode()})")
     flash_attention.launches += 1
-    return out
+    return out if dp == d else out[..., :d].contiguous()
 
 
 flash_attention.launches = 0

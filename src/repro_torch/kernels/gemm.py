@@ -173,9 +173,6 @@ def _lib():
         lib.gemm_pe_launch.argtypes = [i, i, i, p, p, p, p, p, i, i,
                                        ctypes.POINTER(_EpiArg), p]
         lib.gemm_pe_launch.restype = i
-        lib.gemm_pe_simt_launch.argtypes = [i, i, i, p, p, p, i, i,
-                                            ctypes.POINTER(_EpiArg), p]
-        lib.gemm_pe_simt_launch.restype = i
         lib.gemm_pe_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.gemm_pe_limits.restype = i
         lib.gemm_pe_error_string.argtypes = [i]
@@ -207,10 +204,10 @@ def _epi_arg(epi: Optional[Epilogue], extras: Sequence[torch.Tensor],
     return arg
 
 
-def _run(entry: str, x, w, extras, epilogue, extra_kinds, out_dtype,
+def _run(x, w, extras, epilogue, extra_kinds, out_dtype,
          device) -> Tuple[torch.Tensor, bool]:
-    """Checks, then the plain version (CPU) or the kernel behind the C
-    entry point ``entry`` (CUDA); returns (out, launched)."""
+    """Checks, then the plain version (CPU) or K5 (CUDA); returns (out,
+    launched)."""
     dev = resolve_device(device)
     x, w = torch.as_tensor(x, device=dev), torch.as_tensor(w, device=dev)
     extras = tuple(torch.as_tensor(e, device=dev) for e in extras)
@@ -236,19 +233,17 @@ def _run(entry: str, x, w, extras, epilogue, extra_kinds, out_dtype,
         return out.to(out_dtype), False
     arg = _epi_arg(epi, extras, extra_kinds)
     lib = _lib()
-    scratch = ()
-    if entry == "gemm_pe_launch":
-        # the split operands: (parts, Mp, Kp) and (parts, Np, Kp), held
-        # here until the launch is queued
-        parts = 1 if in_bf16 else 2
-        mp, np_, kp = (-(-v // t) * t for v, t in zip((m, n, k), TILE))
-        scratch = (torch.empty((parts, mp, kp), device=dev),
-                   torch.empty((parts, np_, kp), device=dev))
-    rc = getattr(lib, entry)(m, n, k, _ptr(x), _ptr(w),
-                             *map(_ptr, scratch), _ptr(out), int(in_bf16),
-                             int(out_bf16), ctypes.byref(arg), _stream(dev))
+    # the split operands: (parts, Mp, Kp) and (parts, Np, Kp), held here
+    # until the launch is queued
+    parts = 1 if in_bf16 else 2
+    mp, np_, kp = (-(-v // t) * t for v, t in zip((m, n, k), TILE))
+    scratch = (torch.empty((parts, mp, kp), device=dev),
+               torch.empty((parts, np_, kp), device=dev))
+    rc = lib.gemm_pe_launch(m, n, k, _ptr(x), _ptr(w), *map(_ptr, scratch),
+                            _ptr(out), int(in_bf16), int(out_bf16),
+                            ctypes.byref(arg), _stream(dev))
     if rc != 0:
-        raise RuntimeError(f"{entry} failed: CUDA error {rc} "
+        raise RuntimeError(f"gemm_pe_launch failed: CUDA error {rc} "
                            f"({lib.gemm_pe_error_string(rc).decode()})")
     return (out if out.dtype == out_dtype else out.to(out_dtype)), True
 
@@ -267,22 +262,10 @@ def gemm_pe(x, w, *extras, epilogue: Optional[Graph] = None,
     TF32 parts zero-padded to whole tiles (scratch of (Mp + Np) * Kp
     float32 a part), and its main kernel masks the result's ragged edge.
     """
-    out, launched = _run("gemm_pe_launch", x, w, extras, epilogue,
-                         extra_kinds, out_dtype, device)
+    out, launched = _run(x, w, extras, epilogue, extra_kinds, out_dtype,
+                         device)
     gemm_pe.launches += launched
     return out
 
 
 gemm_pe.launches = 0
-
-
-def _gemm_pe_simt(x, w, *extras, epilogue: Optional[Graph] = None,
-                  extra_kinds: Tuple[str, ...] = (), out_dtype=None,
-                  device="cuda") -> torch.Tensor:
-    """:func:`gemm_pe` on K5's earlier SIMT float32 form (a 128x128 tile
-    of ``__fmaf_rn`` multiply-adds, no tensor cores), kept to compare the
-    two forms on the card; nothing on the main path calls it."""
-    if (torch.as_tensor(x).shape[0] + 127) // 128 > 65535:
-        raise ValueError("M exceeds the SIMT form's grid (65535 row tiles)")
-    return _run("gemm_pe_simt_launch", x, w, extras, epilogue, extra_kinds,
-                out_dtype, device)[0]

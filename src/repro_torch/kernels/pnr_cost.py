@@ -139,10 +139,6 @@ def _lib():
         lib.pnr_anneal.restype = i
         lib.pnr_anneal_smem_bytes.argtypes = [i] * 5
         lib.pnr_anneal_smem_bytes.restype = ctypes.c_longlong
-        lib.pnr_anneal_global.argtypes = [i] * 8 + [p] * 17
-        lib.pnr_anneal_global.restype = i
-        lib.pnr_anneal_global_smem_bytes.argtypes = [i, i]
-        lib.pnr_anneal_global_smem_bytes.restype = ctypes.c_longlong
         lib.pnr_error_string.argtypes = [i]
         lib.pnr_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -472,31 +468,3 @@ def anneal_chains(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
 
 
 anneal_chains.launches = 0
-
-
-def _anneal_chains_global(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
-                          active, a, t, log_u, slot0, pnc0, *,
-                          full: bool = False, telemetry: bool = False
-                          ) -> AnnealOut:
-    """:func:`anneal_chains` on K2's earlier form (``anneal_global_kernel``:
-    one warp a block, the tables read from global memory), kept to compare
-    the two forms on the card; nothing on the main path calls it.  CUDA
-    tensors only."""
-    r, s, n, d, e, k, p = _anneal_checks(prob, slot_xy, net_pins, net_mask,
-                                         ent_nets, temps, active, a, t,
-                                         log_u, slot0, pnc0)
-    lib = _lib()
-    smem = lib.pnr_anneal_global_smem_bytes(n, e)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"anneal_chains: {e} entities x {n} nets need "
-                         f"{smem} bytes of shared memory (> 227 KB)")
-    best_slot, best, accepts, curve = _anneal_outputs(r, e, slot0.device)
-    rc = lib.pnr_anneal_global(
-        r, s, n, d, e, k, int(full), int(telemetry), _ptr(prob),
-        _ptr(slot_xy), _ptr(net_pins), _ptr(net_mask), _ptr(ent_nets),
-        _ptr(temps), _ptr(active), _ptr(a), _ptr(t), _ptr(log_u),
-        _ptr(slot0), _ptr(pnc0), _ptr(best_slot), _ptr(best), _ptr(accepts),
-        _ptr(curve), _stream(slot0.device))
-    _check_rc(lib, rc, "anneal_global_kernel")
-    return (best_slot, best, accepts if telemetry else None,
-            curve if telemetry else None)

@@ -27,6 +27,7 @@ version beside it:
   bucket, for every input row, in one launch; replaces the reference's
   vmapped ``lax.scan`` (``sim/cycle.py::_build_batch_stepper``) with the
   compute-all-select ALU of the Pallas ``_build_step_kernel`` inside it;
+  each cycle walks only the events of its phase (:func:`event_lists`);
 * :func:`simulate_batch_plain` — the reference's step function in
   PyTorch, one Python iteration per cycle, on any device.
 
@@ -45,9 +46,11 @@ import torch
 
 from .pnr_cost import _check, _ptr, _stream
 
-__all__ = ["ALU_IMPLS", "OP_IDS", "TABLES", "op_table", "alu_step_reference",
-           "alu_step_plain", "alu_step_masked", "simulate_batch_plain",
-           "simulate_batch_stepper", "stepper_state_bytes"]
+__all__ = ["ALU_IMPLS", "EVENT_KINDS", "OP_IDS", "TABLES", "op_table",
+           "alu_step_reference", "alu_step_plain", "alu_step_masked",
+           "event_lists", "launch_stepper", "micro_ops", "prepare_stepper",
+           "simulate_batch_plain", "simulate_batch_stepper",
+           "stepper_state_bytes"]
 
 _SOURCE = "sim_step.cu"
 
@@ -228,9 +231,9 @@ def _shapes(tables: Dict[str, torch.Tensor]) -> Dict[str, int]:
 def stepper_state_bytes(ip: int, up: int, ep: int, sp: int, wp: int,
                         lp: int, cp: int, latch_depth: int) -> int:
     """Bytes of machine state one (program, input row) keeps for the whole
-    run: double-buffered ext/sig/wire registers, the latch FIFOs and the
-    operand buffer ``[latch view | const | tmp]``."""
-    return 4 * (2 * (ep + sp + wp) + lp * latch_depth + lp + cp + ip * up)
+    run: the ext/sig registers, double-buffered wire registers, the latch
+    FIFOs and the operand buffer ``[latch view | const | tmp]``."""
+    return 4 * (ep + sp + 2 * wp + lp * latch_depth + lp + cp + ip * up)
 
 
 def simulate_batch_plain(tables: Dict[str, torch.Tensor],
@@ -318,7 +321,7 @@ def _lib():
     lib = load(_SOURCE)
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sim_stepper.argtypes = [i] * 14 + [p] * 20
+        lib.sim_stepper.argtypes = [i] * 17 + [p] * 16
         lib.sim_stepper.restype = i
         lib.sim_error_string.argtypes = [i]
         lib.sim_error_string.restype = ctypes.c_char_p
@@ -352,10 +355,11 @@ def _check_tables(tables, inputs, op_ids, dev) -> Dict[str, int]:
 
 
 def _check_indices(t, s, op_ids: torch.Tensor) -> None:
-    """Index tables and op ids in range, and every operand read from the
-    tmp buffer a slot of the reading tile itself (the kernel runs each
-    tile's micro-ops in order on one thread, with no barrier between
-    steps)."""
+    """Index tables and op ids in range, every operand read from the tmp
+    buffer a slot of the reading tile itself (the kernel runs each tile's
+    micro-ops in order on one thread, with no barrier between steps), and
+    every signal loading a tmp slot of its owner (the kernel computes a
+    tile only in the cycles it fires)."""
     ip, up, lp, cp = s["ip"], s["up"], s["lp"], s["cp"]
     tmp_off = lp + cp
     src = t["op_src"]
@@ -372,14 +376,92 @@ def _check_indices(t, s, op_ids: torch.Tensor) -> None:
         out_of(t["wire_src"], s["sp"] + s["ep"] + s["wp"]).any(),
         out_of(t["sig_tmp"], ip * up).any(),
         out_of(t["sig_owner"], ip).any(),
+        (t["sig_tmp"] // up != t["sig_owner"]).any(),
         out_of(t["latch_wire"], s["wp"]).any(),
         out_of(t["latch_owner"], ip).any(),
         out_of(t["out_wire"], s["wp"]).any(),
         (t["ii"] < 1).any()])
     if bool(bad.any()):
         raise ValueError("simulate_batch_stepper: an index table or op id "
-                         "is out of range, an operand reads another tile's "
-                         f"tmp slot, or an II is < 1 (checks: {bad.tolist()})")
+                         "is out of range, an operand or a signal reads "
+                         "another tile's tmp slot, or an II is < 1 (checks: "
+                         f"{bad.tolist()})")
+
+
+#: K3's event kinds, in the order of its lists (``enum EvKind``): tiles
+#: (``fire_time``), signals (their owner's ``fire_time``), exts, latch
+#: captures and output captures (their own times)
+EVENT_KINDS = ("tile", "sig", "ext", "latch", "out")
+
+
+def event_times(tables: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """The first event time (G, n) of every entity of each of
+    :data:`EVENT_KINDS`."""
+    fire = tables["fire_time"].long()
+    return (fire, torch.gather(fire, 1, tables["sig_owner"].long()),
+            tables["ext_time"].long(), tables["latch_time"].long(),
+            tables["out_time"].long())
+
+
+def event_lists(tables: Dict[str, torch.Tensor], *, cycles: int,
+                iterations: int) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """K3's per-phase event lists: ``(ev, off, nb)``, on the tables'
+    device.
+
+    An entity with first event ``t0`` fires at ``t0 + k * II`` for ``k <
+    iterations``.  It is listed (once) under phase ``b = t0 mod II`` of its
+    program as ``ev[e] = (index, t0 div II)`` (floor semantics) if it fires
+    in ``[0, cycles)``; at cycle ``c = m * II + b`` it fires iff ``0 <= m -
+    (t0 div II) < iterations``, at ``k = m - (t0 div II)``.  ``off`` (5, G,
+    nb) int32: list ``b`` of kind ``j`` of program ``g`` is ``ev[off[j, g,
+    b]:off[j, g, b + 1]]``; ``nb`` is the bucket's largest II + 1.  Plain
+    PyTorch, all kinds in one pass on the host (a few thousand entries:
+    one copy each way beats many small launches on the card).
+    """
+    dev = tables["ii"].device
+    ev, off, nb = _event_lists_host(tables, cycles=cycles,
+                                    iterations=iterations)
+    return ev.to(dev), off.to(dev), nb
+
+
+def _event_lists_host(tables, *, cycles: int, iterations: int):
+    """:func:`event_lists` on the host (int32, contiguous)."""
+    times = event_times(tables)
+    sizes = [t.shape[1] for t in times]
+    # one copy to the host: the IIs in column 0, then every kind's times
+    packed = torch.cat([tables["ii"].long()[:, None], *times], 1).cpu()
+    ii, t = packed[:, :1], packed[:, 1:]
+    g_n = ii.shape[0]
+    n_ph = max(1, int(ii.max())) if g_n else 1
+    kind = torch.cat([torch.full((n,), j) for j, n in enumerate(sizes)])
+    idx = torch.cat([torch.arange(n) for n in sizes])
+    m0 = torch.div(t, ii, rounding_mode="floor")
+    k0 = torch.clamp(-m0, min=0)                  # first k with t + k*II >= 0
+    live = (k0 < iterations) & (t + k0 * ii < cycles)
+    # list (kind, program, phase) in that order
+    key = (kind * g_n + torch.arange(g_n)[:, None]) * n_ph + (t - m0 * ii)
+    key, m0 = key[live], m0[live]
+    order = torch.sort(key, stable=True).indices
+    ev = torch.stack([idx.expand_as(t)[live][order], m0[order]], 1)
+    n_lists = len(sizes) * g_n * n_ph
+    starts = torch.zeros(n_lists + 1, dtype=torch.long)
+    starts[1:] = torch.cumsum(torch.bincount(key, minlength=n_lists), 0)
+    at = (torch.arange(len(sizes) * g_n)[:, None] * n_ph
+          + torch.arange(n_ph + 1))
+    off = starts[at].view(len(sizes), g_n, n_ph + 1)
+    if ev.numel() == 0:
+        ev = torch.zeros((1, 2), dtype=torch.long)
+    return (ev.to(torch.int32).contiguous(),
+            off.to(torch.int32).contiguous(), n_ph + 1)
+
+
+def micro_ops(tables: Dict[str, torch.Tensor],
+              op_ids: torch.Tensor) -> torch.Tensor:
+    """(G, ip, up, 4) int32: each micro-op as {global op id, operands a, b,
+    c}, the bucket's opcode table folded in."""
+    op = op_ids.long()[tables["opcodes"].long()]
+    return torch.cat([op[..., None].to(torch.int32), tables["op_src"]],
+                     -1).contiguous()
 
 
 def simulate_batch_stepper(tables: Dict[str, torch.Tensor],
@@ -396,37 +478,68 @@ def simulate_batch_stepper(tables: Dict[str, torch.Tensor],
     Kernel K3 (``sim_stepper_kernel``): one block per (program, input
     row) runs the whole cycle loop with the machine state resident in
     shared memory — or, when it exceeds 227 KB or ``force_global`` is
-    set, in a global scratch buffer, same kernel body.  The ALU is the
-    compute-all-select step of the reference's Pallas
-    ``_build_step_kernel`` (with ``alu_step_masked``'s mask), as a device
-    function.  The dependent chain of cycles, each a few block-wide
+    set, in a global scratch buffer, same kernel body.  Each cycle walks
+    only its phase's events (:func:`event_lists`): the tiles firing then
+    run the compute-all-select step of the reference's Pallas
+    ``_build_step_kernel`` (with ``alu_step_masked``'s mask) as a device
+    function.  The dependent chain of cycles, each three block-wide
     barriers, sets its pace; bytes and operations are far below it.
     """
-    dev = inputs.device
-    if dev.type != "cuda":
+    if inputs.device.type != "cuda":
         return simulate_batch_plain(tables, inputs, op_ids, cycles=cycles,
                                     latch_depth=latch_depth)
+    return launch_stepper(prepare_stepper(
+        tables, inputs, op_ids, cycles=cycles, latch_depth=latch_depth,
+        force_global=force_global))
+
+
+simulate_batch_stepper.launches = 0
+
+
+def prepare_stepper(tables: Dict[str, torch.Tensor], inputs: torch.Tensor,
+                    op_ids: torch.Tensor, *, cycles: int, latch_depth: int,
+                    force_global: bool = False,
+                    floor: bool = False) -> Tuple:
+    """The host's share of :func:`simulate_batch_stepper` on CUDA tensors:
+    the checks, the event lists, the folded micro-ops and the output and
+    scratch buffers; returns the launch's arguments for
+    :func:`launch_stepper` (so the kernel can be timed apart).  ``floor``
+    keeps only the cycle loop's barriers and event walks: the floor of a
+    cycle, for timing; the outputs stay zero."""
+    dev = inputs.device
     s = _check_tables(tables, inputs, op_ids, dev)
     _check_indices(tables, s, op_ids)
     g, b, k = inputs.shape[:3]
     state = stepper_state_bytes(s["ip"], s["up"], s["ep"], s["sp"],
                                 s["wp"], s["lp"], s["cp"], latch_depth)
-    use_global = force_global or state > SMEM_LIMIT
+    ev, off, nb = _event_lists_host(tables, cycles=cycles, iterations=k)
+    # a block stages its program's event lists in shared memory too
+    ev_cap = int((off[:, :, -1] - off[:, :, 0]).sum(0).max())
+    ev, off = ev.to(dev), off.to(dev)
+    lists = 8 * ev_cap + 4 * len(EVENT_KINDS) * nb
+    use_global = force_global or state + 4 + lists > SMEM_LIMIT
     outbuf = torch.zeros((g, b, k, s["op"]), dtype=torch.float32,
                          device=dev)
     scratch = torch.empty((g * b * state // 4 if use_global else 1,),
                           dtype=torch.float32, device=dev)
+    ints = (g, b, k, cycles, latch_depth, s["ip"], s["up"], s["ep"],
+            s["sp"], s["wp"], s["lp"], s["cp"], s["op"], nb, ev_cap,
+            int(use_global), int(floor))
+    bufs = (tables["ii"], tables["dims"], micro_ops(tables, op_ids),
+            tables["const_pool"], tables["fire_time"], tables["wire_src"],
+            tables["sig_tmp"], tables["latch_wire"], tables["latch_owner"],
+            tables["out_wire"], ev, off, inputs, outbuf, scratch)
+    return ints, bufs, dev
+
+
+def launch_stepper(args: Tuple) -> torch.Tensor:
+    """Launch K3 on the arguments of :func:`prepare_stepper` (which hold
+    its buffers alive); returns the output buffer."""
+    ints, bufs, dev = args
     lib = _lib()
-    rc = lib.sim_stepper(
-        g, b, k, cycles, latch_depth, s["ip"], s["up"], s["ep"], s["sp"],
-        s["wp"], s["lp"], s["cp"], s["op"], int(use_global),
-        *(_ptr(tables[name]) for name in TABLES), _ptr(op_ids),
-        _ptr(inputs), _ptr(outbuf), _ptr(scratch), _stream(dev))
+    rc = lib.sim_stepper(*ints, *(_ptr(x) for x in bufs), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"sim_stepper_kernel failed to launch: CUDA "
                            f"error {rc} ({lib.sim_error_string(rc).decode()})")
     simulate_batch_stepper.launches += 1
-    return outbuf
-
-
-simulate_batch_stepper.launches = 0
+    return bufs[-2]

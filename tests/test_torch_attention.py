@@ -179,3 +179,133 @@ def test_flash_attention_checks_shapes():
     launches = flash_attention.launches
     flash_attention(q, k, v, device="cpu")
     assert flash_attention.launches == launches
+
+
+# ---------------------------------------------------------------------------
+# K6's rounding, emulated in plain PyTorch on the CPU: the kernel runs on
+# the card only, but the error its tensor-core arithmetic adds can be held
+# to the float64 oracle here.
+# ---------------------------------------------------------------------------
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 (10 mantissa bits), to nearest with ties away from
+    zero (``cvt.rna.tf32.f32``), by bit mask."""
+    bits = x.float().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm3(a, b, chunk=None, split=True):
+    """3xTF32 ``a @ b``: lo*hi + hi*lo + hi*hi, each product exact, summed
+    from zero per ``chunk`` of the inner dimension and rounded to float32
+    once per chunk, the chunks added in float32 (``split=False``: hi*hi
+    alone, 1xTF32)."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    pairs = ((al, bh), (ah, bl), (ah, bh)) if split else ((ah, bh),)
+    n = a.shape[-1]
+    chunk = chunk or n
+    out = None
+    for c0 in range(0, n, chunk):
+        sl = slice(c0, c0 + chunk)
+        part = sum(x[..., sl].double() @ y[..., sl, :].double()
+                   for x, y in pairs).float()
+        out = part if out is None else out + part
+    return out
+
+
+def _k6_emulated(q, k, v, *, causal=True, window=0, softcap=0.0, scale=0.0,
+                 bf16=False, split=True):
+    """K6's arithmetic: kv tiles of 64 keys (32 at D > 64 in float32), S
+    summed per 32 of D (3xTF32) or exactly (bfloat16 products), then
+    scaled; softcap, -1e30 masks and the online softmax in float32; P in
+    TF32 parts or bfloat16; a fresh accumulator a tile, added after the
+    alpha rescale with one rounding; out = acc / max(l, 1e-30).
+    ``split=False`` takes the float32 products in TF32 alone (hi parts)."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    scale = scale or 1.0 / np.sqrt(d)
+    bk = 32 if (d > 64 and not bf16) else 64
+    q, k, v = (x.float() for x in (q, k, v))
+    k = k.repeat_interleave(group, 1)
+    v = v.repeat_interleave(group, 1)
+    qs = q if bf16 else q * np.float32(scale)
+    acc = torch.zeros((b, hq, s, d))
+    m = torch.full((b, hq, s), -1e30)
+    l = torch.zeros((b, hq, s))
+    qp = torch.arange(s)[:, None]
+    for k0 in range(0, s, bk):
+        kb, vb = k[:, :, k0:k0 + bk], v[:, :, k0:k0 + bk]
+        if bf16:
+            sc = (qs.double() @ kb.transpose(-1, -2).double()).float() \
+                * np.float32(scale)
+        else:
+            sc = _mm3(qs, kb.transpose(-1, -2), chunk=32, split=split)
+        if softcap:
+            sc = softcap * torch.tanh(sc / softcap)
+        kp = torch.arange(k0, k0 + kb.shape[2])[None, :]
+        ok = kp < s
+        if causal:
+            ok = ok & (kp <= qp)
+        if window:
+            ok = ok & (kp > qp - window)
+        sc = torch.where(ok, sc, torch.tensor(-1e30))
+        m_new = torch.maximum(m, sc.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new[..., None])
+        l = (l.double() * alpha + p.sum(-1)).float()
+        if bf16:
+            fresh = (p.bfloat16().double() @ vb.double()).float()
+        else:
+            fresh = _mm3(p, vb, split=split)
+        acc = (acc.double() * alpha[..., None].double()
+               + fresh.double()).float()
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+K6_ROUNDING_CASES = [
+    # (B, Hq, Hkv, S, D, kwargs)
+    (1, 4, 2, 200, 64, dict(causal=True)),
+    (1, 4, 2, 150, 64, dict(causal=False)),
+    (1, 2, 1, 130, 128, dict(causal=True, window=70, softcap=50.0,
+                             scale=1.0 / 12)),
+    (1, 4, 4, 100, 32, dict(causal=False, window=30, softcap=5.0)),
+]
+
+
+@pytest.mark.parametrize("case", range(len(K6_ROUNDING_CASES)))
+def test_k6_3xtf32_rounding_holds_the_oracle(case):
+    """float32 through 3xTF32 products stays within 2e-5 of the float64
+    oracle, as K6 (float32) is held on the card."""
+    b, hq, hkv, s, d, kw = K6_ROUNDING_CASES[case]
+    q, k, v = (torch.as_tensor(x) for x in _qkv(case, b, hq, hkv, s, d))
+    got = _k6_emulated(q, k, v, **kw)
+    want = _jax_ref(q.numpy(), k.numpy(), v.numpy(), **kw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    # the control: TF32 alone (hi parts only, 1xTF32) does not hold it
+    hi_only = _k6_emulated(q, k, v, split=False, **kw).numpy()
+    assert not np.allclose(hi_only, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("case", range(len(K6_ROUNDING_CASES)))
+def test_k6_bfloat16_p_holds_the_oracle(case):
+    """bfloat16 inputs with P rounded to bfloat16 before P V stay within
+    5e-2 of the float64 oracle on the same (rounded) inputs, and, rounded
+    to bfloat16 as K6 stores them, within the relative error norms K6 is
+    held to on the card against its plain version (``chip_smoke.py``
+    ``K6_BF16_REL``, ``K6_BF16_ROW``)."""
+    b, hq, hkv, s, d, kw = K6_ROUNDING_CASES[case]
+    q, k, v = (torch.as_tensor(x).bfloat16()
+               for x in _qkv(case, b, hq, hkv, s, d))
+    got = _k6_emulated(q, k, v, bf16=True, **kw)
+    want = t_ref(*(x.double() for x in (q, k, v)), **kw)
+    assert torch.allclose(got.double(), want, rtol=BF16_TOL, atol=BF16_TOL)
+    plain = attention_plain(q, k, v, **kw)
+    assert torch.allclose(got, plain.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    d = got.bfloat16().double() - plain.double()
+    w = plain.double()
+    assert float(d.norm() / w.norm()) <= 2.0 ** -8
+    assert float((d.norm(dim=-1) / w.norm(dim=-1)).max()) <= 2.0 ** -6

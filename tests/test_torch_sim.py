@@ -257,7 +257,8 @@ def _periodic_floor(c, t0, ii, k_n):
 
 
 def _periodic_trunc(c, t0, ii, k_n):
-    """The kernel's ``periodic``: C's truncating ``/`` and ``%``."""
+    """The kernel's latch-view iteration: C's truncating ``/`` and
+    ``%``."""
     d = c - t0
     q = int(d / ii) if d >= 0 else -((-d) // ii)
     r = d - q * ii
@@ -417,6 +418,69 @@ def test_stepper_wrapper_runs_plain_on_cpu_tensors(fig8):
     assert t_step.stepper_state_bytes(*sig[:7], sig[9]) < t_step.SMEM_LIMIT
 
 
+def _walk_events(ev, off, g, kind, c, ii, k_n):
+    """K3's walk of its lists at cycle c: {(index, k)} of the entries of
+    phase c % II whose iteration k = c // II - (t0 div II) is in [0, K)."""
+    b, m = c % ii, c // ii
+    lo, hi = int(off[kind, g, b]), int(off[kind, g, b + 1])
+    return {(int(x), m - int(m0)) for x, m0 in ev[lo:hi].tolist()
+            if 0 <= m - int(m0) < k_n}
+
+
+@pytest.mark.parametrize("name", ["camera", "gaussian", "harris",
+                                  "laplacian"])
+@pytest.mark.parametrize("ii,k_n,cycles", [(None, 2, None), (1, 3, 40),
+                                           (3, 1, 97), (5, 4, 160)])
+def test_event_lists_fire_as_periodic(fig8, name, ii, k_n, cycles):
+    """Every entity K3's event lists fire at cycle c, and its k, are what
+    ``periodic`` gives with floor semantics, for every cycle; two programs
+    of other IIs share the lists."""
+    tf = fig8[name][1]
+    prog = T.build_sim(*tf[:3], pnr=tf[3])[0]
+    sig, one = _tables(prog, k=k_n)
+    tables = {f: torch.cat([v, v]) for f, v in one.items()}
+    tables["ii"] = torch.tensor([ii or prog.ii, 2 * (ii or prog.ii) + 1],
+                                dtype=torch.int32)
+    tables["ext_time"][1, :3] = -7           # starts before cycle 0
+    cycles = cycles or sig[8]
+    ev, off, nb = t_step.event_lists(tables, cycles=cycles, iterations=k_n)
+    assert off.shape == (len(t_step.EVENT_KINDS), 2, nb)
+    assert nb == int(tables["ii"].max()) + 1
+    times = [t.numpy() for t in t_step.event_times(tables)]
+    for g in range(2):
+        ii_g = int(tables["ii"][g])
+        for kind, t in enumerate(times):
+            listed = []
+            for b in range(nb - 1):
+                lo, hi = int(off[kind, g, b]), int(off[kind, g, b + 1])
+                listed += ev[lo:hi, 0].tolist()
+                if b >= ii_g:
+                    assert lo == hi
+            assert len(listed) == len(set(listed))
+            for c in range(cycles):
+                want = set()
+                d = c - t[g]
+                live = (d >= 0) & (d % ii_g == 0) & (d // ii_g < k_n)
+                for i in np.flatnonzero(live):
+                    fires, k = _periodic_floor(c, int(t[g, i]), ii_g, k_n)
+                    assert fires
+                    want.add((int(i), k))
+                assert _walk_events(ev, off, g, kind, c, ii_g, k_n) == want
+
+
+def test_micro_ops_fold_the_opcode_table(fig8):
+    tf = fig8["harris"][1]
+    prog = T.build_sim(*tf[:3], pnr=tf[3])[0]
+    sig, tables = _tables(prog)
+    op_ids = torch.tensor([t_step.OP_IDS[o] for o in prog.ops],
+                          dtype=torch.int32)
+    steps = t_step.micro_ops(tables, op_ids)
+    assert steps.shape == tables["op_src"].shape[:3] + (4,)
+    assert steps.dtype == torch.int32 and steps.is_contiguous()
+    assert torch.equal(steps[..., 1:], tables["op_src"])
+    assert torch.equal(steps[..., 0], op_ids[tables["opcodes"].long()])
+
+
 def test_stepper_index_checks(fig8):
     tf = fig8["gaussian"][1]
     prog = T.build_sim(*tf[:3], pnr=tf[3])[0]
@@ -436,6 +500,10 @@ def test_stepper_index_checks(fig8):
         t_step._check_indices(bad, shapes, op_ids)
     with pytest.raises(ValueError, match="out of range"):
         t_step._check_indices(tables, shapes, op_ids + 100)
+    bad = dict(tables, sig_tmp=tables["sig_tmp"].clone())
+    bad["sig_tmp"][0, 0] = (int(tables["sig_owner"][0, 0]) + 1) * sig[1]
+    with pytest.raises(ValueError, match="signal reads another tile"):
+        t_step._check_indices(bad, shapes, op_ids)
 
 
 def test_compare_with_interp_keeps_reference_fault():
