@@ -19,22 +19,29 @@ version:
    kernel's registers and shared memory (``-Xptxas -v``);
 3. run the Explorer's front half (mine -> rank -> merge -> map) on the
    card's Explorer, lower every (variant, app) pair, group the pairs by
-   bucket signature, and on every signature check the batched-HPWL kernel
-   (K1) and the annealing kernel (K2: delta, full and telemetry) against
-   their plain versions on the card — slots, costs, accept counts and cost
-   curves bit-equal — and time K2 and sum it over the signatures (one
-   launch each on the main path); then place, route and schedule every
+   bucket signature, and on every signature check the annealing kernel
+   (K2: delta, full and telemetry) against its plain version on the card —
+   the starting per-net costs its prologue scores (K1's function, which
+   has no launch of its own), slots, costs, accept counts and cost curves
+   bit-equal — and time K2 and sum it over the signatures (one launch each
+   on the main path); then place, route and schedule every
    pair on a copy of the front, group the programs by sim signature, and
    on every one check the cycle stepper (K3, state in shared and in global
    memory) against its plain version on the card, outputs bit-equal;
-4. run the Explorer to the end on the card with the launch counters set
-   to 0 just before, read them just after, then rerun pnr, schedule and
-   simulate on the CPU over the same mined and mapped front (one store,
-   ``forget("pnr", "sched", "sim")``) and require identical records,
-   sim buckets and failure rows, every simulated pair golden-verified,
-   K1/K2 launched and K3 launched once per sim bucket;
+4. run the Explorer to the end on the card, traced by ``torch.profiler``
+   (CUDA activity), with the launch counters set to 0 just before, read
+   them just after, then rerun pnr, schedule and simulate on the CPU over
+   the same mined and mapped front (one store, ``forget("pnr", "sched",
+   "sim")``) and require identical records, sim buckets and failure rows,
+   every simulated pair golden-verified, K2 launched, K3 launched once
+   per sim bucket, the trace's launches of both equal to the counters,
+   and no launch in the trace of K1 (a kernel whose name holds "hpwl") or
+   of another kernel of this repository's sources;
 5. time each kernel and its plain version with CUDA events at the main
-   path's largest signature (camera on PE1), K2 also a step; K3's launch
+   path's largest signature (camera on PE1), K2 also a step and with zero
+   steps (staging, the prologue that computes K1's function, and writing
+   the start out: the kernel alone from the profiler's trace, and with
+   its wrapper); K3's launch
    alone (its wrapper's host work apart) also a cycle, with its state in
    global memory, at a larger input batch, and with empty cycles
    (barriers and event walks only: the floor of a cycle, printed beside
@@ -70,8 +77,28 @@ version:
    ``scaled_dot_product_attention`` (with the backend PyTorch picks), and
    print K6's share of its bound, its ratio to that call, and the floor
    its exponentials set;
-8. print one JSON line ``{"kernels": [...]}`` with launches, max |diff|,
-   times and bounds of K1-K7 (K3's ``ms`` its launch alone, its
+8. hierarchical placement (``place_hierarchical``) on the locality-4
+   synthetic netlists of ``benchmarks/pnr_bench.py`` (``HIER_SIZES``):
+   at 64x64 with that bench's budget (2 chains x 2 sweeps) the card's
+   ``HierPlacement`` equals the CPU's field by field and delta equals full
+   on the card; at 128x128 (8x8 clusters of 16x16) at the default budget
+   (16 chains x 32 sweeps), with the launch counter set to 0 just before
+   and read just after, the wall of each span (partition, cluster, io,
+   detail, deblock) and K2's launches and time per level (each call
+   attributed to the ``pnr.hier.*`` span open around it), then K2 held
+   to its plain version at every level: the cluster level's launch (full
+   scoring in the kernel), the detail level's largest, and the deblock's
+   on its first ``HIER_CHECK_STEPS`` steps; flat ``place`` at 64x64
+   beside the hierarchical placer at the same budget; and a flat 128x128
+   problem on the grouped path (``anneal_jax_batch``, padded to its
+   bucket signature), whose chain state exceeds shared memory and lives
+   in global memory: timed, and held to the plain version on its first
+   ``HIER_CHECK_STEPS`` steps;
+9. print one JSON line ``{"kernels": [...]}`` with launches, max |diff|,
+   times and bounds of K1-K7 (K1's row: its launches counted in the
+   main path's trace, its ``ms`` K2 with zero steps, the kernel alone,
+   against the bound of that launch's bytes, its ``timed`` key says so;
+   K3's ``ms`` its launch alone, its
    ``wrapper_ms`` with the wrapper's host work, as the main path pays
    it), then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -92,6 +119,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -139,6 +167,15 @@ K6_TOL, K6_BF16_TOL, K7_TOL = 2e-5, 5e-2, 1e-4
 #: output 1% low fails the first limit, a kv tile's P V dropped or an
 #: unrescaled accumulator both
 K6_BF16_REL, K6_BF16_ROW = 2.0 ** -8, 2.0 ** -6
+#: phase 8: benchmarks/pnr_bench.py HIER_SIZES, HIER_LOCALITY and the
+#: seed of its hier_sweep (the netlist's; the placer's is seed + 1)
+HIER_SIZES, HIER_LOCALITY, HIER_SEED = (64, 128), 4, 4
+#: the steps of the 128x128 deblock's chains (of 65536) and of the grouped
+#: flat 128x128 bucket's (of 524288) held to the plain version, which
+#: takes about a millisecond a step
+HIER_CHECK_STEPS = 4096
+#: K2's per-step inputs (R, S) or (P, S), cut to a prefix of steps
+STREAMS = ("a", "t", "log_u", "temps", "active")
 
 
 def fail(msg: str) -> None:
@@ -179,6 +216,150 @@ def same_bits(a, b) -> bool:
     eq = (a.view(torch.int32) == b.view(torch.int32)) \
         | (torch.isnan(a) & torch.isnan(b))
     return bool(eq.all())
+
+
+def device_kernels(run):
+    """``run()`` under ``torch.profiler`` (CUDA activity): its result and
+    the device kernels it launched, ``{name: [milliseconds of each
+    launch]}`` (copies and memsets included under their own names)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    kern = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            kern.setdefault(ev.name, []).append(
+                ev.time_range.elapsed_us() / 1e3)
+    return out, kern
+
+
+def launches_of(kern: dict, name: str) -> int:
+    """Launches of the kernels in a :func:`device_kernels` trace whose
+    name holds ``name`` as a word."""
+    pat = re.compile(rf"\b{name}\b")
+    return sum(len(v) for k, v in kern.items() if pat.search(k))
+
+
+def source_kernels() -> list:
+    """Names of the ``__global__`` functions in the port's CUDA sources."""
+    names = set()
+    for f in sorted(os.listdir(os.path.join(ROOT, CSRC))):
+        if f.endswith(".cu"):
+            with open(os.path.join(ROOT, CSRC, f)) as fh:
+                names.update(re.findall(
+                    r"__global__[^{;]*?\b(\w+_kernel)\s*\(", fh.read()))
+    return sorted(names)
+
+
+def record_k2_calls(run):
+    """``run()`` with tracing on and every ``fabric.place.run_chains`` call
+    (K2's one launch on the placement paths) recorded as ``(level,
+    inputs, full, wall_s)``: ``level`` is the innermost open
+    ``pnr.hier.*`` span without its prefix (cluster, detail, deblock), or
+    "flat" outside them.  Returns (run's result, the calls, the
+    tracer)."""
+    import torch
+    from repro_torch.obs import disable_tracing, enable_tracing
+    place_mod = sys.modules["repro_torch.fabric.place"]
+    orig = place_mod.run_chains
+    calls = []
+    tracer = enable_tracing()
+
+    def run_chains(inputs, device, *, full=False, telemetry=False):
+        level = next((n[len("pnr.hier."):]
+                      for n in reversed(tracer.open_spans())
+                      if n.startswith("pnr.hier.")), "flat")
+        sync = torch.device(device).type == "cuda"
+        if sync:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(inputs, device, full=full, telemetry=telemetry)
+        if sync:
+            torch.cuda.synchronize()
+        calls.append((level, inputs, full, time.perf_counter() - t))
+        return out
+
+    place_mod.run_chains = run_chains
+    try:
+        out = run()
+    finally:
+        disable_tracing()
+        place_mod.run_chains = orig
+    return out, calls, tracer
+
+
+def k2_per_level(calls, dev) -> dict:
+    """Each recorded K2 call (:func:`record_k2_calls`) launched again on
+    the card and timed alone (CUDA events), summed by level: launches,
+    ms, the calls' walls with their inputs' copies, and each launch's
+    shape and layout (:func:`pnr_cost.anneal_layout`)."""
+    from repro_torch.fabric.place import KERNEL_INPUTS
+    from repro_torch.kernels import pnr_cost
+    per_level = {}
+    for lv, inputs, full, call_wall in calls:
+        d = {k: v.to(dev) for k, v in inputs.items()}
+        args = [d[k] for k in KERNEL_INPUTS]
+        fix = d.get("net_fix")
+        ms = cuda_ms(lambda: pnr_cost.anneal_chains(*args, fix, full=full),
+                     1)
+        row = per_level.setdefault(lv, {"launches": 0, "ms": 0.0,
+                                        "call_wall_s": 0.0, "shapes": []})
+        row["launches"] += 1
+        row["ms"] += ms
+        row["call_wall_s"] += call_wall
+        r_, s_ = d["a"].shape
+        p_, n_, d_ = d["net_pins"].shape
+        e_, k_ = d["ent_nets"].shape[1:]
+        _, stage, chain, smem = pnr_cost.anneal_layout(n_, d_, e_, k_,
+                                                       fix is not None)
+        row["shapes"].append(
+            f"R={r_} S={s_} P={p_} N={n_} D={d_} E={e_} K={k_}"
+            + (" boxes" if fix is not None else "")
+            + (" full scoring" if full or 2 * k_ > pnr_cost._MAX_TOUCHED
+               else "")
+            + f" (tables {'staged' if stage else 'global'}, chain "
+            f"{'shared' if chain else 'global'}, {smem} B shared a block; "
+            f"{ms:.4f} ms)")
+    return per_level
+
+
+def k2_vs_plain(d: dict, what: str, steps=None) -> tuple:
+    """K2 on the kernel inputs ``d`` (on the card) against its plain
+    version in delta, full and telemetry mode: the starting costs its
+    prologue writes (``pnc0_out``; the plain version's are
+    ``net_hpwl_rows_plain``'s), slots, costs, accepts and curves
+    bit-equal, or the run fails.  With ``steps``, both run the first
+    ``steps`` steps of every chain only.  Returns the largest |difference|
+    of the starting costs and of the other float outputs (0, 0)."""
+    import torch
+    from repro_torch.fabric.place import KERNEL_INPUTS
+    from repro_torch.kernels import pnr_cost
+    if steps is not None:
+        d = {k: (v[:, :steps].contiguous() if k in STREAMS else v)
+             for k, v in d.items()}
+    args = [d[k] for k in KERNEL_INPUTS] + [d.get("net_fix")]
+    err = {"pnc0": 0.0, "out": 0.0}
+    for full, tele in ((False, False), (True, False), (False, True)):
+        got0 = torch.full((d["a"].shape[0], d["net_pins"].shape[1]), -1.0,
+                          device=d["a"].device)
+        want0 = torch.full_like(got0, -2.0)
+        got = pnr_cost.anneal_chains(*args, full=full, telemetry=tele,
+                                     pnc0_out=got0)
+        want = pnr_cost.anneal_chains_plain(*args, full=full, telemetry=tele,
+                                            pnc0_out=want0)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("pnc0", "best_slot", "best", "accepts",
+                               "curve"), (got0,) + got, (want0,) + want):
+            if (g is None) != (w is None) or (g is not None
+                                              and not torch.equal(g, w)):
+                fail(f"K2 (full={full}, telemetry={tele}) {name} differs "
+                     f"from its plain version: {what}")
+            if g is not None and g.dtype == torch.float32:
+                key = "pnc0" if name == "pnc0" else "out"
+                err[key] = max(err[key], float((g - w).abs().max()))
+    return err["pnc0"], err["out"]
 
 
 def rel_norms(got, want) -> tuple:
@@ -364,6 +545,190 @@ def attention_scan_phase(dev, launches: dict) -> dict:
 
 
 
+def hier_fields_differ(a, b) -> list:
+    """The fields of two ``HierPlacement`` s that differ: every level's
+    winning slots, the level costs, the final coordinates and cost."""
+    import numpy as np
+    bad = []
+    if not np.array_equal(a.cluster_slots, b.cluster_slots):
+        bad.append("cluster_slots")
+    if a.detail_slots.keys() != b.detail_slots.keys() or not all(
+            np.array_equal(a.detail_slots[k], b.detail_slots[k])
+            for k in a.detail_slots):
+        bad.append("detail_slots")
+    if (a.deblock_slots is None) != (b.deblock_slots is None) or (
+            a.deblock_slots is not None
+            and not np.array_equal(a.deblock_slots, b.deblock_slots)):
+        bad.append("deblock_slots")
+    return bad + [f for f in ("level_costs", "coords", "cost")
+                  if getattr(a, f) != getattr(b, f)]
+
+
+def hier_phase(dev) -> dict:
+    """Phase 8: ``place_hierarchical`` on the card at 64x64 (== the CPU,
+    delta == full) and 128x128 (span walls, K2 per level, K2 with fixed
+    boxes == plain at every level), flat ``place`` at 64x64 beside it, and
+    a flat 128x128 problem on the grouped path (K2 with its chain's state
+    in global memory, == plain)."""
+    import torch
+    from repro_torch.fabric import (FabricSpec, anneal_jax_batch,
+                                    batch_signature, lower, place,
+                                    place_hierarchical, synthetic_netlist)
+    from repro_torch.fabric.place import KERNEL_INPUTS
+    from repro_torch.kernels import pnr_cost
+
+    phase("8 hierarchical placement at mega-fabric size")
+    nets = {}
+    for size in HIER_SIZES:
+        spec = FabricSpec(rows=size, cols=size)
+        nets[size] = (spec, synthetic_netlist(spec, seed=HIER_SEED,
+                                              locality=HIER_LOCALITY))
+    small, big = HIER_SIZES
+    spec, nl = nets[small]
+    kw = dict(chains=2, sweeps=2, seed=HIER_SEED + 1)
+    t0 = time.perf_counter()
+    card = {m: place_hierarchical(nl, spec, score_mode=m, device="cuda",
+                                  **kw) for m in ("delta", "full")}
+    t1 = time.perf_counter()
+    cpu = place_hierarchical(nl, spec, score_mode="delta", device="cpu",
+                             **kw)
+    t2 = time.perf_counter()
+    for what, a, b in (("card vs cpu", card["delta"], cpu),
+                       ("delta vs full on the card", card["delta"],
+                        card["full"])):
+        bad = hier_fields_differ(a, b)
+        if bad:
+            fail(f"hierarchical {small}x{small} {what}: {bad} differ")
+    h = card["delta"]
+    print(f"hierarchical {small}x{small} (grid {h.cluster_grid}, "
+          f"{len(nl.pe_cells)} PE + {len(nl.io_cells)} I/O cells, "
+          f"{len(nl.nets)} nets, chains 2 x sweeps 2): card == cpu on "
+          f"cluster_slots, detail_slots, deblock_slots, level_costs, "
+          f"coords and cost, delta == full on the card; level costs "
+          f"{h.level_costs}; card {t1 - t0:.2f} s for both modes, cpu "
+          f"{t2 - t1:.2f} s", flush=True)
+
+    # 128x128 at the default budget: every K2 call recorded under the
+    # level span it ran in
+    spec, nl = nets[big]
+    torch.cuda.synchronize()
+    pnr_cost.anneal_chains.launches = 0
+    t0 = time.perf_counter()
+    h, calls, tracer = record_k2_calls(lambda: place_hierarchical(
+        nl, spec, chains=16, sweeps=32, seed=HIER_SEED + 1, device="cuda"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = pnr_cost.anneal_chains.launches
+    spans = {}
+    for sp, _depth, _path in tracer.iter_spans():
+        if sp.name.startswith("pnr.hier."):
+            spans[sp.name[9:]] = spans.get(sp.name[9:], 0.0) + sp.dur
+    cells = [c.name for c in nl.pe_cells] + [c.name for c in nl.io_cells]
+    levels = [c[0] for c in calls]
+    if launches != len(calls) or h.cluster_grid < 2 or sorted(h.coords) \
+            != sorted(cells) or len(set(h.coords.values())) != len(cells) \
+            or not 0 < h.cost < float("inf") or levels[0] != "cluster" \
+            or levels[-1] != "deblock" or "detail" not in levels:
+        fail(f"hierarchical {big}x{big}: {launches} launches for {len(calls)} "
+             f"calls at levels {levels}, grid {h.cluster_grid}, "
+             f"{len(h.coords)} cells placed on {len(set(h.coords.values()))} "
+             f"tiles, cost {h.cost}")
+    print(f"hierarchical {big}x{big} (grid {h.cluster_grid}, "
+          f"{len(nl.pe_cells)} PE + {len(nl.io_cells)} I/O cells, "
+          f"{len(nl.nets)} nets, chains 16 x sweeps 32, delta): "
+          f"{wall:.3f} s wall; span walls (s) "
+          f"{ {k: round(v, 4) for k, v in spans.items()} }; level costs "
+          f"{h.level_costs}; K2 launched {launches} times", flush=True)
+    per_level = k2_per_level(calls, dev)
+    for lv, row in per_level.items():
+        print(f"  K2 at the {lv} level: {row['launches']} launch(es), "
+              f"{row['ms']:.4f} ms on the card (CUDA events), "
+              f"{row['call_wall_s']:.3f} s with its inputs' copies; "
+              f"{row['shapes']}", flush=True)
+
+    # K2 against its plain version on every level: the cluster level's
+    # launch (more than 32 nets an entity: the kernel scores in full,
+    # the plain version in delta too) and the detail level's largest, every
+    # step; the deblock (tables and boxes in global memory) on a prefix
+    box_err = 0.0
+    t0 = time.perf_counter()
+    cluster = next(c for c in calls if c[0] == "cluster")
+    detail = max((c for c in calls if c[0] == "detail"),
+                 key=lambda c: c[1]["prob"].shape[0])
+    deblock = next(c for c in calls if c[0] == "deblock")
+    for (lv, inputs, _, _), steps in ((cluster, None), (detail, None),
+                                      (deblock, HIER_CHECK_STEPS)):
+        d = {k: v.to(dev) for k, v in inputs.items()}
+        r_, s_ = d["a"].shape
+        t1 = time.perf_counter()
+        box_err = max(box_err, *k2_vs_plain(d, f"{big}x{big} {lv} level",
+                                            steps))
+        print(f"K2 == plain (delta, full, telemetry; starting costs, slots, "
+              f"costs, accepts, curves) at the {big}x{big} {lv} level"
+              f"{' (its largest launch)' if lv == 'detail' else ''}: "
+              f"R={r_} chains x "
+              + (f"S={s_} steps (not cut)" if steps is None else
+                 f"the first {steps} of S={s_} steps (cut: the plain "
+                 f"version takes about a millisecond a step)")
+              + f", N={d['net_pins'].shape[1]}, K={d['ent_nets'].shape[2]}"
+              f"{', boxes' if 'net_fix' in d else ''}, in "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+
+    # flat beside it at the smaller size, the same budget
+    spec, nl = nets[small]
+    t0 = time.perf_counter()
+    flat = place(nl, spec, chains=16, sweeps=32, seed=HIER_SEED + 1,
+                 device="cuda")
+    t1 = time.perf_counter()
+    h64 = place_hierarchical(nl, spec, chains=16, sweeps=32,
+                             seed=HIER_SEED + 1, device="cuda")
+    t2 = time.perf_counter()
+    print(f"{small}x{small} at chains 16 x sweeps 32: flat place "
+          f"{t1 - t0:.3f} s, "
+          f"HPWL {flat.cost}; hierarchical {t2 - t1:.3f} s, HPWL "
+          f"{h64.cost} (level costs {h64.level_costs})", flush=True)
+
+    # flat at the larger size: its own path fits a chain in shared memory;
+    # the grouped path (the Explorer's, padded to the bucket signature)
+    # keeps the chain's state in global memory
+    spec, nl = nets[big]
+    p = lower(nl, spec)
+    n_, d_ = p.net_pins.shape
+    w, stage, chain, smem = pnr_cost.anneal_layout(n_, d_, p.n_entities,
+                                                   p.ent_nets.shape[1])
+    print(f"flat {big}x{big} (place, unpadded N={n_}, D={d_}, "
+          f"E={p.n_entities}, K={p.ent_nets.shape[1]}): {smem} B of shared "
+          f"memory a block, tables {'staged' if stage else 'global'}, chain "
+          f"{'shared' if chain else 'global'}", flush=True)
+    sig = batch_signature(p, 32)
+    w, stage, chain, smem = pnr_cost.anneal_layout(*sig[1:])
+    chain_bytes = (2 * sig[3] + sig[1]) * 4
+    if chain or chain_bytes <= pnr_cost.SMEM_LIMIT:
+        fail(f"the grouped flat {big}x{big} bucket {sig} keeps a chain of "
+             f"{chain_bytes} B in shared memory")
+    t0 = time.perf_counter()
+    _, gcalls, _ = record_k2_calls(lambda: anneal_jax_batch(
+        [p], chains=16, sweeps=32, seed=HIER_SEED + 1, device="cuda"))
+    g_wall = time.perf_counter() - t0
+    _, inputs, _, g_k2_wall = gcalls[0]
+    d = {k: v.to(dev) for k, v in inputs.items()}
+    g_ms = cuda_ms(lambda: pnr_cost.anneal_chains(
+        *[d[k] for k in KERNEL_INPUTS]), 1)
+    t1 = time.perf_counter()
+    box_err = max(box_err, *k2_vs_plain(d, f"grouped flat {big}x{big}",
+                                        HIER_CHECK_STEPS))
+    print(f"flat {big}x{big} on the grouped path (anneal_jax_batch, padded "
+          f"to {sig}): the chain's {chain_bytes} B of state in global "
+          f"memory (> {pnr_cost.SMEM_LIMIT} B), {smem} B shared a block; "
+          f"{g_wall:.3f} s wall, K2 {g_ms:.4f} ms on the card (CUDA "
+          f"events) for R={d['a'].shape[0]} chains x S={d['a'].shape[1]} "
+          f"steps ({1e3 * g_ms / d['a'].shape[1]:.4f} us a step); == plain "
+          f"on the first {HIER_CHECK_STEPS} steps (cut) in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    return {"box_err": box_err, "hier_wall": wall, "spans": spans,
+            "per_level": per_level}
+
+
 def main() -> int:
     import torch
 
@@ -467,41 +832,22 @@ def main() -> int:
             nonces=[zlib.crc32(f"{pe}:{app}".encode()) for (pe, app), _ in
                     items])
         d = {k: v.to(dev) for k, v in inputs.items()}
-        k1_args = (d["prob"], d["slot0"], d["slot_xy"], d["net_pins"],
-                   d["net_mask"])
-        pnc0 = pnr_cost.net_hpwl_rows(*k1_args)
-        pnc0_plain = pnr_cost.net_hpwl_rows_plain(*k1_args)
-        torch.cuda.synchronize()
-        if not torch.equal(pnc0, pnc0_plain):
-            fail(f"K1 differs from its plain version at {sig}")
-        max_err["k1"] = max(max_err["k1"],
-                            float((pnc0 - pnc0_plain).abs().max()))
-        args = [d[k] for k in KERNEL_INPUTS] + [pnc0]
-        for full, tele in ((False, False), (True, False), (False, True)):
-            got = pnr_cost.anneal_chains(*args, full=full, telemetry=tele)
-            want = pnr_cost.anneal_chains_plain(*args, full=full,
-                                                telemetry=tele)
-            torch.cuda.synchronize()
-            for name, g, w in zip(("best_slot", "best", "accepts", "curve"),
-                                  got, want):
-                if (g is None) != (w is None):
-                    fail(f"K2 {name} presence differs at {sig}")
-                if g is None:
-                    continue
-                if not torch.equal(g, w):
-                    fail(f"K2 (full={full}, telemetry={tele}) {name} "
-                         f"differs from its plain version at {sig}")
-                if g.dtype == torch.float32:
-                    max_err["k2"] = max(max_err["k2"],
-                                        float((g - w).abs().max()))
+        args = [d[k] for k in KERNEL_INPUTS]
+        pnc0_plain = pnr_cost.net_hpwl_rows_plain(
+            d["prob"], d["slot0"], d["slot_xy"], d["net_pins"],
+            d["net_mask"])
+        errs = k2_vs_plain(d, f"signature {sig}")
+        max_err["k1"] = max(max_err["k1"], errs[0])
+        max_err["k2"] = max(max_err["k2"], errs[1])
         k2_ms = cuda_ms(lambda: pnr_cost.anneal_chains(*args), 2)
         pairs = [f"{pe}/{app}" for (pe, app), _ in items]
         per_sig.append((sig, pairs, k2_ms))
-        print(f"  {'x'.join(map(str, sig))}: {pairs} K1 == plain, "
-              f"K2 delta/full/telemetry == plain; K2 {k2_ms:.4f} ms "
+        print(f"  {'x'.join(map(str, sig))}: {pairs} K2's starting costs "
+              f"(K1) == plain, K2 delta/full/telemetry == plain; K2 "
+              f"{k2_ms:.4f} ms "
               f"({1e3 * k2_ms / sig[0]:.4f} us a step)", flush=True)
         if largest is None or sig[0] > largest[0][0]:
-            largest = (sig, d, pnc0)
+            largest = (sig, d, pnc0_plain)
 
     k2_sum = sum(x[2] for x in per_sig)
     print(f"K2 summed over the {len(per_sig)} signatures (one launch each "
@@ -579,22 +925,36 @@ def main() -> int:
                 stages[sp.name] = stages.get(sp.name, 0.0) + sp.dur
         return out, wall, stages
 
-    pnr_cost.net_hpwl_rows.launches = 0
+    # the run traced by torch.profiler: every device kernel it launched,
+    # by name; K1 (the Pallas _hpwl_kernel's port was net_hpwl_kernel) is
+    # counted there, as every launch of a kernel whose name holds "hpwl"
     pnr_cost.anneal_chains.launches = 0
     sim_step.simulate_batch_stepper.launches = 0
-    res, gpu_wall, gpu_stages = traced_run(ex)
-    torch.cuda.synchronize()
-    launches = {"k1": pnr_cost.net_hpwl_rows.launches,
+    (res, gpu_wall, gpu_stages), kern = device_kernels(
+        lambda: traced_run(ex))
+    launches = {"k1": sum(len(v) for k, v in kern.items() if "hpwl" in k),
                 "k2": pnr_cost.anneal_chains.launches,
                 "k3": sim_step.simulate_batch_stepper.launches}
+    ours = {name: launches_of(kern, name) for name in source_kernels()}
     rows = [r.to_dict() for r in res.records()]
     buckets = {b for b in res.sim_buckets.values() if b}
-    print(f"Explorer.run() on cuda: {gpu_wall:.2f} s wall; stage walls (s) "
+    print(f"Explorer.run() on cuda (traced by torch.profiler): "
+          f"{gpu_wall:.2f} s wall; stage walls (s) "
           f"{ {k: round(v, 3) for k, v in gpu_stages.items()} }; "
           f"{ex.stats['pnr_dispatch']} pnr dispatches, "
-          f"{ex.stats['sim_dispatch']} sim dispatches, launches {launches}",
-          flush=True)
-    if launches["k1"] == 0 or launches["k2"] == 0:
+          f"{ex.stats['sim_dispatch']} sim dispatches, launches {launches}; "
+          f"the trace holds {sum(len(v) for v in kern.values())} device "
+          f"activities of {len(kern)} names, of this repository's kernels "
+          f"{ {k: v for k, v in ours.items() if v} }", flush=True)
+    if ours["anneal_kernel"] != launches["k2"] \
+            or ours["sim_stepper_kernel"] != launches["k3"]:
+        fail(f"the profiler's trace ({ours}) disagrees with the launch "
+             f"counters ({launches})")
+    if launches["k1"] or any(v for k, v in ours.items() if k not in (
+            "anneal_kernel", "sim_stepper_kernel")):
+        fail(f"the main path launched K1 or a kernel off its path: "
+             f"{launches}, {ours}")
+    if launches["k2"] == 0:
         fail(f"the main path skipped a kernel: launches {launches}")
     if not (launches["k3"] == ex.stats["sim_dispatch"] == len(buckets) > 0):
         fail(f"K3 launched {launches['k3']} times for {len(buckets)} sim "
@@ -627,10 +987,11 @@ def main() -> int:
         fail("failure rows on cuda differ from the cpu rerun")
     if ex_cpu.stats["mine"] or ex_cpu.stats["map"]:
         fail("the cpu rerun re-mined: the front half must be shared")
+    fails = [(f.stage, f.pe_name, f.app, f.error_type)
+             for f in res.failures]
     print(f"{len(rows)} records ({len(sims)} simulated and golden-verified, "
-          f"{len(buckets)} sim buckets), failure rows "
-          f"{[(f.stage, f.pe_name, f.app, f.error_type) for f in res.failures]}"
-          f" identical on cuda and cpu")
+          f"{len(buckets)} sim buckets), failure rows {fails} identical on "
+          f"cuda and cpu")
     print(res.table())
 
     # -- 5: kernel times and bounds at the largest signature ---------------
@@ -640,16 +1001,53 @@ def main() -> int:
                d["net_mask"])
     r_n, e_n = d["slot0"].shape
     n_n, d_n = d["net_pins"].shape[1:]
-    k1_ms = cuda_ms(lambda: pnr_cost.net_hpwl_rows(*k1_args), 20)
-    k1_plain = cuda_ms(lambda: pnr_cost.net_hpwl_rows_plain(*k1_args), 5)
+    # K1's function is K2's prologue: K2 with zero steps stages the tables,
+    # scores the start and writes it out as the best placement
+    zero = {k: (v[:, :0].contiguous() if k in ("a", "t", "log_u", "temps",
+                                                "active") else v)
+            for k, v in d.items()}
+    args0 = [zero[k] for k in KERNEL_INPUTS]
+    pro = torch.full_like(pnc0, -1.0)
+    out0 = pnr_cost.anneal_chains(*args0, pnc0_out=pro)
+    torch.cuda.synchronize()
+    if not (torch.equal(pro, pnc0) and torch.equal(out0[0], d["slot0"])
+            and torch.equal(out0[1], pnc0.sum(dim=1))):
+        fail("K2 with zero steps does not return its start")
+    # the kernel alone (its device time in the profiler's trace) and with
+    # its wrapper (the pin table and the outputs; CUDA events)
+    reps = 20
+    _, kern0 = device_kernels(lambda: [
+        pnr_cost.anneal_chains(*args0, pnc0_out=pro) for _ in range(reps)])
+    k1_times = [t for k, v in kern0.items() if "anneal_kernel" in k
+                for t in v]
+    if len(k1_times) != reps:
+        fail(f"the profiler traced {len(k1_times)} launches of K2 with zero "
+             f"steps for {reps}")
+    k1_ms = sum(k1_times) / reps
+    k1_wrap = cuda_ms(lambda: pnr_cost.anneal_chains(*args0, pnc0_out=pro),
+                      reps)
+    k1_plain = cuda_ms(lambda: pnr_cost.anneal_chains_plain(
+        *args0, pnc0_out=pro), 5)
+    k1_plain_costs = cuda_ms(
+        lambda: pnr_cost.net_hpwl_rows_plain(*k1_args), 5)
+    # what that launch must move: the problems' tables as the kernel reads
+    # them (pin table, slot coordinates, ent_nets), the chains' start, and
+    # the starting costs, slots and cost it writes; its operations are the
+    # prologue's (K1's: 4 a pin, 3 a net)
+    tab = pnr_cost.pin_table(d["net_pins"], d["net_mask"])
     k1_pins = int(d["net_mask"][d["prob"].long()].sum())
-    k1_bytes = nbytes(*k1_args, pnc0)
+    k1_bytes = nbytes(d["prob"], d["slot_xy"], tab, d["ent_nets"],
+                      d["slot0"], pnc0) + r_n * (e_n * 4 + 4)
     k1_ops = 4 * k1_pins + 3 * r_n * n_n
-    args = [d[k] for k in KERNEL_INPUTS] + [pnc0]
+    args = [d[k] for k in KERNEL_INPUTS]
     k2_ms = cuda_ms(lambda: pnr_cost.anneal_chains(*args), 3)
     k2_steps = d["a"].shape[1]
     print(f"K2 at {'x'.join(map(str, sig))}: {k2_ms:.4f} ms, "
-          f"{1e3 * k2_ms / k2_steps:.4f} us a step; summed over the main "
+          f"{1e3 * k2_ms / k2_steps:.4f} us a step; with zero steps (staging, "
+          f"the prologue, which computes K1's function, and writing the "
+          f"start out) {k1_ms:.4f} ms alone (torch.profiler), {k1_wrap:.4f} "
+          f"ms with its wrapper, {k1_plain:.4f} ms plain (the starting "
+          f"costs alone {k1_plain_costs:.4f} ms); summed over the main "
           f"path's {launches['k2']} launches {k2_sum:.4f} ms", flush=True)
     if launches["k2"] != len(per_sig):
         fail(f"K2 launched {launches['k2']} times on the main path for "
@@ -929,14 +1327,19 @@ def main() -> int:
     # -- 7: the attention / selective-scan boundary at model widths -------
     p7 = attention_scan_phase(dev, launches)
 
-    # -- 8: the kernels line ----------------------------------------------
+    # -- 8: hierarchical placement at mega-fabric size -------------------
+    p8 = hier_phase(dev)
+
+    # -- 9: the kernels line ----------------------------------------------
+    phase("9 the kernels line")
     def bound(b, ops, peak=FP32_OPS_PER_S):
         t_b, t_o = b / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
     kernels = []
     for name, src, repl, n, err, ms, plain_ms, b, ops in (
-            ("net_hpwl_kernel (K1)", "pnr_anneal.cu",
+            ("anneal_kernel with zero steps (K1, folded into K2's "
+             "prologue)", "pnr_anneal.cu",
              "src/repro/kernels/pnr_cost.py:108", launches["k1"],
              max_err["k1"], k1_ms, k1_plain, k1_bytes, k1_ops),
             ("anneal_kernel (K2)", "pnr_anneal.cu",
@@ -950,9 +1353,18 @@ def main() -> int:
                         "replaces": repl, "launches": n, "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": by, "library_ms": None})
+    # K1's row times K2 launched with zero steps: staging, the prologue
+    # (K1's function) and writing the start out, the kernel alone; its
+    # launches are the profiler's count of K1 on the main path
+    kernels[0]["timed"] = ("anneal_kernel with zero steps and pnc0_out: "
+                           "staging, the prologue and writing the start "
+                           "out; ms alone (torch.profiler), wrapper_ms with "
+                           "its wrapper, launches counted in the main "
+                           "path's trace")
+    kernels[0]["wrapper_ms"] = k1_wrap
     # K3's ms is its launch alone; with the wrapper's host work (checks,
     # event lists, buffers), as the main path pays it:
-    kernels[-1]["wrapper_ms"] = k3_wrap
+    kernels[2]["wrapper_ms"] = k3_wrap
     _, _, prog, ms, plain_ms, lib_ms, b, ops = k4_rows[0]
     b_ms, by = bound(b, ops)
     kernels.append({"name": "pe_kernel (K4)", "route": "triton",

@@ -18,11 +18,17 @@ are individually invokable and memoized by content key; the ``pnr`` stage
 anneals all (variant, app) placements of a bucket signature in one kernel
 launch, and the ``simulate`` stage steps every program of a sim bucket in
 one launch of the cycle-stepper kernel.  ``python -m repro_torch.explore
---help`` drives the same pipeline from the command line.  The on-disk
-store of the JAX package is not ported yet.
+--help`` drives the same pipeline from the command line.
+
+Robustness: pass a :class:`DiskStore` as the Explorer's store for
+crash-safe resumption; with ``on_error="isolate"`` (the default) a
+twice-failing (variant, app) pair degrades to a structured
+:class:`StageFailure` row in ``ExploreResult.failures`` instead of
+killing the run.
 """
 
 from .config import CONFIG_SCHEMA, ConfigFormatError, ExploreConfig
+from .persist import DiskStore, FileLock, ThreadSafeStore
 from .pipeline import (Explorer, ExploreResult, evaluate_pairs, graph_key,
                        pnr_grouped)
 from .records import (FAILURE_SCHEMA, RECORD_SCHEMA, ExploreRecord,
@@ -32,6 +38,7 @@ from .records import (FAILURE_SCHEMA, RECORD_SCHEMA, ExploreRecord,
 
 __all__ = [
     "CONFIG_SCHEMA", "ConfigFormatError", "ExploreConfig",
+    "DiskStore", "FileLock", "ThreadSafeStore",
     "Explorer", "ExploreResult",
     "evaluate_pairs", "graph_key", "pnr_grouped",
     "FAILURE_SCHEMA", "RECORD_SCHEMA", "ExploreRecord",

@@ -5,19 +5,30 @@ Subcommands::
     python -m repro_torch.explore per-app --suite ml --rows 16 --cols 16 \
         --simulate --out results/explore_ml.jsonl --dump-config cfg.json
     python -m repro_torch.explore domain --suite image --name PE_IP
+    python -m repro_torch.explore per-app --suite image --fabric \
+        --rows 32 --cols 32 --pnr-mode hierarchical --store store/
     python -m repro_torch.explore --smoke     # fast end-to-end self check
 
 ``--device`` picks where the pnr stage anneals and the simulate stage
 steps its programs: ``cuda`` (the default; fails without a card) or
-``cpu`` (the kernels' plain PyTorch versions).
+``cpu`` (the kernels' plain PyTorch versions); ``--smoke-device`` does
+the same for ``--smoke``, ``--faults-smoke`` and ``--resume-smoke``.
+``--pnr-mode hierarchical`` places each pair in two levels (cluster ->
+detail -> deblock; ``repro_torch.fabric.place_hierarchical``).
 ``--dump-config`` writes the resolved :class:`ExploreConfig` as JSON; the
 same exploration replays later with ``--config cfg.json``.  ``--trace
 [PATH]`` writes a Chrome trace of every stage; ``--metrics PATH`` dumps
 the explorer's metrics registry as JSON.
 
-Not ported yet: ``--pnr-mode hierarchical`` (exits 1 with
-NotImplementedError), the on-disk ``--store`` and the fault/resume smokes
-of the JAX package's CLI.
+Robustness flags::
+
+    --store DIR          crash-safe on-disk memo store; a re-invocation
+                         after a crash resumes from completed stages
+    --on-error MODE      isolate (default): a failing pair degrades to a
+                         structured failure row; raise: fail fast
+    --allow-partial      exit 0 even when pairs degraded
+    --inject-fault SPEC  arm a deterministic fault (site:kind:nth);
+                         repeatable — test/CI harness only
 
 Exit codes: 0 clean run; 1 degraded (StageFailures present, or a
 fail-fast error) — one structured summary line on stderr, never a
@@ -96,7 +107,8 @@ def _add_common(sp: argparse.ArgumentParser) -> None:
     sp.add_argument("--pnr-mode", default="flat",
                     choices=("flat", "hierarchical"),
                     help="flat: single-level anneal (default); "
-                         "hierarchical: not ported yet")
+                         "hierarchical: two-level cluster -> detail -> "
+                         "deblock placement for large arrays")
     sp.add_argument("--sim-batch", default="grouped",
                     choices=("grouped", "serial"),
                     help="batch-first schedule/simulate stages (grouped) "
@@ -106,6 +118,10 @@ def _add_common(sp: argparse.ArgumentParser) -> None:
                     help="isolate: a failing (variant, app) pair degrades "
                          "to a StageFailure row, groupmates unaffected; "
                          "raise: fail fast on the first error")
+    sp.add_argument("--store", default=None, metavar="DIR",
+                    help="crash-safe on-disk memo store (atomic writes, "
+                         "checksummed entries); re-invoking with the same "
+                         "DIR resumes from completed stages")
     sp.add_argument("--allow-partial", action="store_true",
                     help="exit 0 even when some pairs degraded to "
                          "StageFailure rows")
@@ -166,7 +182,14 @@ def _run(args, mode: str) -> int:
         with open(args.dump_config, "w") as f:
             json.dump(cfg.to_dict(), f, indent=2)
         print(f"config -> {args.dump_config}")
-    ex = Explorer(apps, cfg, device=args.device)
+    store = metrics = None
+    if args.store:
+        from ..obs.metrics import MetricsRegistry
+        from .persist import DiskStore
+        metrics = MetricsRegistry()       # shared so load-time events
+        store = DiskStore(args.store, metrics=metrics)   # land in it too
+    ex = Explorer(apps, cfg, store=store, metrics=metrics,
+                  device=args.device)
     obs_handle = _obs_begin(getattr(args, "trace", None),
                             getattr(args, "metrics", None))
     try:
@@ -198,7 +221,7 @@ _SMOKE_STAGES = ("mine", "rank", "merge", "map", "pnr", "schedule",
 
 def _smoke_case():
     """The paper's Fig. 3 convolution on a 4x4 fabric — the shared
-    (apps, config) case of the self-check smoke."""
+    (apps, config) case every self-check smoke runs."""
     from ..core.mining import MiningConfig
     from ..fabric import FabricOptions, FabricSpec
     from ..graphir import trace_scalar
@@ -283,14 +306,150 @@ def smoke(trace=None, metrics_path=None, device="cuda") -> int:
     return 0
 
 
+def faults_smoke(device="cuda") -> int:
+    """Fault-injection matrix, the pipeline on ``device``.
+
+    One injected fault per pipeline stage, twice over:
+
+    * transient (first attempt only) — the stage's serial retry must
+      absorb it; the run stays clean and produces the full record set;
+    * persistent (first attempt AND the ``.retry`` site) — the pair
+      degrades to a structured :class:`StageFailure` row while every
+      *untouched* pair's record stays bit-identical to a clean
+      baseline (the pow2-bucket independence invariant).
+
+    Plus a budget-exhaustion leg: an impossible scheduler II budget must
+    surface as ``BudgetExceeded`` failure rows — degraded, never a hang.
+    """
+    from dataclasses import replace
+
+    from .. import faultinject
+    from .records import summarize_failures
+
+    apps, cfg = _smoke_case()
+    base = Explorer(apps, cfg, device=device).run()
+    base_rows = {(r.pe_name, r.app): r.to_dict() for r in base.records()}
+    assert base.clean and base_rows, "baseline run must be clean"
+
+    for stage in _SMOKE_STAGES:
+        faultinject.disarm_all()
+        faultinject.arm(f"{stage}:exc:0")
+        res = Explorer(apps, cfg, device=device).run()
+        faultinject.disarm_all()
+        assert res.clean, (f"{stage}: transient fault not absorbed by "
+                           f"retry: {[f.to_dict() for f in res.failures]}")
+        assert {(r.pe_name, r.app) for r in res.records()} \
+            == set(base_rows), f"{stage}: transient fault lost records"
+
+        faultinject.arm(f"{stage}:exc:0")
+        faultinject.arm(f"{stage}.retry:exc:0")
+        res = Explorer(apps, cfg, device=device).run()
+        faultinject.disarm_all()
+        assert res.failures, f"{stage}: persistent fault left run clean"
+        assert all(f.stage == stage for f in res.failures), \
+            f"{stage}: failure rows name wrong stage: {res.failures}"
+        assert all(f.retried for f in res.failures), \
+            f"{stage}: failure rows not marked retried"
+        hit = {(f.pe_name, f.app) for f in res.failures}
+        for r in res.records():
+            k = (r.pe_name, r.app)
+            if k in hit:      # the degraded pair keeps upstream columns
+                continue
+            assert r.to_dict() == base_rows[k], \
+                f"{stage}: untouched pair {k} diverged from baseline"
+        print(f"# {stage:<9} transient->retried clean; persistent->"
+              f"{summarize_failures(res.failures)}")
+
+    # budgets: an impossible cap degrades, never hangs — on both the
+    # grouped dispatch AND its serial retry (the budget is content, not
+    # a property of which batch path ran)
+    for knob, stage in ((dict(anneal_max_states=1), "pnr"),
+                        (dict(sim_max_cycles=1), "simulate")):
+        cfg_b = cfg.replace(fabric=replace(cfg.fabric, **knob))
+        res = Explorer(apps, cfg_b, device=device).run()
+        assert res.failures, f"{knob}: exhausted budget left run clean"
+        assert all(f.stage == stage for f in res.failures)
+        assert all(f.error_type == "BudgetExceeded" for f in res.failures), \
+            f"budget failures mistyped: {[f.to_dict() for f in res.failures]}"
+        assert all(f.budget for f in res.failures), \
+            "BudgetExceeded rows carry no budget state"
+        print(f"# budget    {knob} -> {summarize_failures(res.failures)}")
+    print("# explore faults-smoke OK: every stage degrades, none die")
+    return 0
+
+
+def resume_smoke(device="cuda") -> int:
+    """Kill-resume self check, the pipeline on ``device``.
+
+    Invokes this CLI in a subprocess with ``--store`` and an armed
+    ``store.write:kill:N`` fault — the process SIGKILLs itself mid-run,
+    mid-store-write.  A re-invocation against the same store directory
+    must resume from the completed stages and produce records
+    bit-identical to a crash-free run (manifest header excluded: it
+    captures wall-clock environment).
+    """
+    import os
+    import subprocess
+    import tempfile
+
+    def cli(extra, check=True):
+        cmd = [sys.executable, "-m", "repro_torch.explore", "per-app",
+               "--suite", "camera", "--simulate", "--rows", "6",
+               "--cols", "6", "--chains", "2", "--sweeps", "4",
+               "--min-support", "2", "--max-pattern-nodes", "5",
+               "--device", device] + extra
+        p = subprocess.run(cmd, capture_output=True, text=True,
+                           timeout=600)
+        if check and p.returncode != 0:
+            raise AssertionError(
+                f"{cmd} -> rc={p.returncode}\n{p.stdout}\n{p.stderr}")
+        return p
+
+    def records_of(path):
+        with open(path) as f:
+            return [ln for ln in f.read().splitlines()[1:] if ln]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clean_out = f"{tmp}/clean.jsonl"
+        cli(["--out", clean_out])
+        want = records_of(clean_out)
+        assert want, "crash-free run produced no records"
+
+        store = f"{tmp}/store"
+        p = cli(["--store", store, "--inject-fault", "store.write:kill:3"],
+                check=False)
+        assert p.returncode != 0, "injected SIGKILL did not kill the run"
+        n_entries = len([f for f in os.listdir(store)
+                         if f.endswith(".entry")])
+        assert n_entries >= 3, \
+            f"killed run persisted only {n_entries} entries"
+
+        resumed_out = f"{tmp}/resumed.jsonl"
+        p = cli(["--store", store, "--out", resumed_out])
+        got = records_of(resumed_out)
+        assert got == want, (
+            "resumed records diverge from crash-free run:\n"
+            + "\n".join(ln for ln in got if ln not in want))
+    print(f"# explore resume-smoke OK: killed mid-write after "
+          f"{n_entries} persisted entries, resumed bit-identical "
+          f"({len(want)} records)")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.explore",
                                  description=__doc__)
     ap.add_argument("--smoke", action="store_true",
                     help="fast end-to-end self check")
+    ap.add_argument("--faults-smoke", action="store_true",
+                    help="fault-injection matrix: one injected fault per "
+                         "stage, asserting degraded-not-dead")
+    ap.add_argument("--resume-smoke", action="store_true",
+                    help="kill -9 a run mid-store-write, resume from the "
+                         "on-disk store, assert bit-identical records")
     ap.add_argument("--smoke-device", default="cuda", choices=("cuda", "cpu"),
-                    help="where --smoke anneals and simulates "
-                         "(default cuda)")
+                    help="where --smoke, --faults-smoke and --resume-smoke "
+                         "anneal and simulate (default cuda)")
     ap.add_argument("--trace", nargs="?", const="out.trace.json",
                     default=None, metavar="PATH",
                     help="record a pipeline trace and write Chrome "
@@ -306,6 +465,10 @@ def main(argv=None) -> int:
     try:
         if args.smoke:
             return smoke(args.trace, args.metrics, args.smoke_device)
+        if args.faults_smoke:
+            return faults_smoke(args.smoke_device)
+        if args.resume_smoke:
+            return resume_smoke(args.smoke_device)
         if args.cmd is None:
             ap.print_help()
             return 2
@@ -314,8 +477,8 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     except (ValueError, RuntimeError, OSError) as e:
-        # --on-error raise (fail fast), a missing card, a stage that is
-        # not ported yet and malformed CLI inputs land here: one
+        # --on-error raise (fail fast), a missing card and malformed CLI
+        # inputs land here: one
         # structured line, never an unhandled traceback
         print(f"error: {type(e).__name__}: {e}", file=sys.stderr)
         return 1

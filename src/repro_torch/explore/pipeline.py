@@ -671,17 +671,15 @@ class Explorer:
         Gathers every pair missing from the memo, lowers all netlists,
         groups them by bucket signature, and anneals each group's chains
         in one kernel launch (``pnr_batch="grouped"``).  Non-"jax"
-        backends and ``pnr_batch="serial"`` fall back to the per-pair
-        loop.  ``pnr_mode="hierarchical"`` is not ported yet and raises.
+        backends, ``pnr_batch="serial"`` and ``pnr_mode="hierarchical"``
+        fall back to the per-pair loop (a hierarchical placement is itself
+        a batched launch across its clusters, so cross-pair grouping buys
+        nothing).
         """
-        from ..fabric import HIERARCHICAL_NOT_PORTED
-
         cfg = self.config
         options = cfg.fabric
         if options is None:
             raise ValueError("pnr stage requires config.fabric")
-        if cfg.pnr_mode == "hierarchical":
-            raise NotImplementedError(HIERARCHICAL_NOT_PORTED)
         mappings = self.map()
         sig = _pnr_fields(options, cfg.pnr_batch, cfg.pnr_mode)
 

@@ -11,10 +11,6 @@ see: fewer, bigger PEs mean fewer tiles and shorter routes.
     from repro_torch.fabric import FabricSpec, place_and_route
     pnr = place_and_route(dp, mapping, app, FabricSpec(rows=8, cols=8))
     print(pnr.cost.row())
-
-The hierarchical placer of the JAX package (``cluster.py``,
-``place_hierarchical``) is not ported yet: ``pnr_mode="hierarchical"``
-raises :class:`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -27,26 +23,24 @@ from ..core.pe import Datapath
 from ..graphir.graph import Graph
 from .arch import FabricSpec, manhattan
 from .cost import FabricCost, attach_fabric, evaluate_fabric
+from .cluster import Clustering, partition
 from .netlist import Cell, Net, Netlist, extract_netlist, synthetic_netlist
 from .options import FabricOptions
-from .place import Placement, PlacementProblem, anneal_jax, \
+from .place import HierPlacement, Placement, PlacementProblem, anneal_jax, \
     anneal_jax_batch, anneal_python, batch_signature, lower, net_incidence, \
-    place
+    place, place_hierarchical
 from .route import RouteResult, RoutedNet, route_nets
 
 __all__ = [
     "FabricSpec", "FabricOptions", "manhattan", "Cell", "Net", "Netlist",
     "extract_netlist", "synthetic_netlist", "Placement", "PlacementProblem",
-    "lower", "net_incidence", "place", "anneal_jax",
+    "HierPlacement", "Clustering", "partition",
+    "lower", "net_incidence", "place", "place_hierarchical", "anneal_jax",
     "anneal_jax_batch", "anneal_python", "batch_signature",
     "RouteResult", "RoutedNet", "route_nets",
     "FabricCost", "evaluate_fabric", "attach_fabric", "PnRResult",
-    "place_and_route", "HIERARCHICAL_NOT_PORTED",
+    "place_and_route",
 ]
-
-HIERARCHICAL_NOT_PORTED = (
-    "pnr_mode='hierarchical' is not ported yet (ROADMAP.md, 'Hierarchical "
-    "placement': cluster.py, place_hierarchical and the fixed-box kernels)")
 
 
 @dataclass
@@ -69,21 +63,31 @@ def place_and_route(dp: Datapath, mapping: Mapping, app: Graph,
                     pnr_mode: str = "flat", device="cuda") -> PnRResult:
     """Full flow: netlist -> place -> route -> array-level cost.
 
-    The placement anneals on ``device`` (``"cuda"`` by default; pass
-    ``"cpu"`` for the kernels' plain PyTorch versions).
+    ``pnr_mode="hierarchical"`` runs :func:`place_hierarchical` (cluster ->
+    detail -> deblock) instead of the flat single-level anneal — worth it
+    for mega-fabrics, pure overhead for the small arrays single mapped
+    apps produce.  The placement anneals on ``device`` (``"cuda"`` by
+    default; pass ``"cpu"`` for the kernels' plain PyTorch versions).
     """
-    if pnr_mode == "hierarchical":
-        raise NotImplementedError(HIERARCHICAL_NOT_PORTED)
-    if pnr_mode != "flat":
-        raise ValueError(f"unknown pnr_mode {pnr_mode!r}")
     spec = spec or FabricSpec()
     netlist = extract_netlist(mapping, app, spec)
     if auto_size:
         spec = spec.fit(len(netlist.pe_cells), len(netlist.io_cells))
-    placement = place(netlist, spec, backend=backend, chains=chains,
-                      sweeps=sweeps, seed=seed, hpwl_backend=hpwl_backend,
-                      score_mode=score_mode, max_states=max_states,
-                      device=device)
+    if pnr_mode == "hierarchical":
+        if backend != "jax" or hpwl_backend != "jnp":
+            raise ValueError("pnr_mode='hierarchical' requires the jax "
+                             "backend with hpwl_backend='jnp'")
+        placement = place_hierarchical(netlist, spec, chains=chains,
+                                       sweeps=sweeps, seed=seed,
+                                       score_mode=score_mode,
+                                       max_states=max_states, device=device)
+    elif pnr_mode == "flat":
+        placement = place(netlist, spec, backend=backend, chains=chains,
+                          sweeps=sweeps, seed=seed,
+                          hpwl_backend=hpwl_backend, score_mode=score_mode,
+                          max_states=max_states, device=device)
+    else:
+        raise ValueError(f"unknown pnr_mode {pnr_mode!r}")
     routes = route_nets(netlist, placement, spec)
     fc = evaluate_fabric(dp, mapping, netlist, placement, routes, spec,
                          pe_name=pe_name)

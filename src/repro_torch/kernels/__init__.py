@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-* :mod:`.pnr_cost` — HPWL scoring (K1) and the annealing chain (K2),
-  CUDA C++ in ``csrc/pnr_anneal.cu``;
+* :mod:`.pnr_cost` — HPWL scoring and the annealing chain (K2, whose
+  prologue scores every chain's start: the reference's K1), CUDA C++ in
+  ``csrc/pnr_anneal.cu``;
 * :mod:`.sim_step` — the simulator's ALU step and the cycle stepper (K3),
   CUDA C++ in ``csrc/sim_step.cu``;
 * :mod:`.pe_fused` — the generated fused-PE kernel (K4), Triton code
@@ -25,10 +26,10 @@ from .gemm import gemm_pe
 from .mamba_scan import mamba_scan
 from .ops import attention, fused_pe_apply, matmul_fused, selective_scan
 from .pe_fused import kernel_from_config, make_pe_kernel
-from .pnr_cost import anneal_chains, net_hpwl_rows
+from .pnr_cost import anneal_chains
 from .sim_step import simulate_batch_stepper
 
-__all__ = ["anneal_chains", "net_hpwl_rows", "simulate_batch_stepper",
+__all__ = ["anneal_chains", "simulate_batch_stepper",
            "fused_pe_apply", "matmul_fused", "make_pe_kernel",
            "kernel_from_config", "gemm_pe", "attention", "selective_scan",
            "flash_attention", "mamba_scan"]

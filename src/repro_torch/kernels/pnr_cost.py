@@ -9,21 +9,28 @@ Plain PyTorch functions (the semantics every kernel is held to):
 
 * :func:`net_hpwl` / :func:`hpwl` — per-net / total HPWL of one placement;
 * :func:`hpwl_delta` — rescore only the nets a swap touches;
+* :func:`net_hpwl_fixed` / :func:`hpwl_fixed` / :func:`hpwl_delta_fixed`
+  — the same with per-net fixed boxes folded in (``net_fix``: xmin, xmax,
+  ymin, ymax over a net's external pins, in the sub-problem's frame; the
+  hierarchical placer's cluster-local problems), :data:`EMPTY_BOX` the
+  "no external pins" sentinel, a bit-exact no-op;
+* :func:`net_hpwl_rows_plain` — per-net HPWL of a batch of placements
+  (what the reference's Pallas ``_hpwl_kernel`` computes);
 * :func:`hpwl_reference` — pure-Python oracle.
 
-Kernels (CUDA C++ for sm_90a, ``csrc/pnr_anneal.cu``), each with a plain
-version beside it that the wrapper runs for CPU tensors:
+Kernel (CUDA C++ for sm_90a, ``csrc/pnr_anneal.cu``), with a plain version
+beside it that the wrapper runs for CPU tensors:
 
-* :func:`net_hpwl_rows` (K1) — per-net HPWL for a batch of placements,
-  replacing the reference's Pallas ``_hpwl_kernel`` (``hpwl_pallas``);
 * :func:`anneal_chains` (K2) — whole annealing sweeps with the delta
   rescoring of the reference's Pallas ``_hpwl_delta_kernel`` fused in,
   replacing the ``fori_loop`` of ``_build_batch_annealer`` /
-  ``_build_annealer``.
+  ``_build_annealer``.  Its prologue scores every chain's start: the
+  per-net HPWL of the Pallas ``_hpwl_kernel`` (``hpwl_pallas``), which
+  therefore has no launch of its own.
 
-Each wrapper counts its launches in ``<wrapper>.launches``.  For a CUDA
-tensor it launches its kernel or raises; it never falls back to the plain
-version.
+The wrapper counts its launches in ``anneal_chains.launches``.  For a
+CUDA tensor it launches its kernel or raises; it never falls back to the
+plain version.
 """
 
 from __future__ import annotations
@@ -35,9 +42,10 @@ import numpy as np
 import torch
 
 __all__ = ["hpwl_reference", "net_hpwl_from_xy", "net_hpwl", "hpwl",
-           "hpwl_delta", "net_hpwl_rows", "net_hpwl_rows_plain",
-           "anneal_chains", "anneal_chains_plain", "anneal_layout",
-           "pin_table", "CURVE_POINTS"]
+           "hpwl_delta", "EMPTY_BOX", "fixed_box", "net_hpwl_fixed_from_xy",
+           "net_hpwl_fixed", "hpwl_fixed", "hpwl_delta_fixed",
+           "net_hpwl_rows_plain", "anneal_chains", "anneal_chains_plain",
+           "anneal_layout", "pin_table", "CURVE_POINTS"]
 
 _BIG = 1e9
 
@@ -45,7 +53,8 @@ _BIG = 1e9
 CURVE_POINTS = 16
 
 _SOURCE = "pnr_anneal.cu"
-#: 2K: K2 keeps at most two touched nets a lane (one when 2K <= 32)
+#: 2K: K2 keeps at most two touched nets a lane (one when 2K <= 32); above
+#: it the wrapper asks for full scoring
 _MAX_TOUCHED = 64
 #: shared memory a block may use on Hopper (232,448 bytes)
 SMEM_LIMIT = 227 * 1024
@@ -126,6 +135,90 @@ def hpwl_delta(slot_xy: torch.Tensor, cand_slot_of: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Fixed-terminal variants: per-net fixed bounding boxes folded into the
+# reduction (cluster-local frames for the hierarchical placer)
+# ---------------------------------------------------------------------------
+
+#: per-net "no external pins" box: [xmin, xmax, ymin, ymax] with min > max,
+#: the identity of the fold below — min(x, 1e9) == x and max(x, -1e9) == x
+#: exactly, so a sentinel box is a bit-exact no-op and fixed-box programs
+#: agree with the plain ones on box-free nets
+EMPTY_BOX = (_BIG, -_BIG, _BIG, -_BIG)
+
+
+def fixed_box(points) -> np.ndarray:
+    """[xmin, xmax, ymin, ymax] float32 over (x, y) pairs; EMPTY_BOX when
+    there are none.  Host-side helper for lowering cluster-local nets."""
+    pts = np.asarray(list(points), np.float32)
+    if pts.size == 0:
+        return np.asarray(EMPTY_BOX, np.float32)
+    return np.asarray([pts[:, 0].min(), pts[:, 0].max(),
+                       pts[:, 1].min(), pts[:, 1].max()], np.float32)
+
+
+def net_hpwl_fixed_from_xy(xy: torch.Tensor, net_mask: torch.Tensor,
+                           net_fix: torch.Tensor) -> torch.Tensor:
+    """Per-net HPWL with per-net fixed boxes folded in.
+    xy: (..., N, D, 2); net_mask: (..., N, D) bool; net_fix: (..., N, 4).
+    Returns (..., N).  A net is scored when it has movable pins or a
+    non-empty box."""
+    x, y = xy[..., 0], xy[..., 1]
+    big = torch.tensor(_BIG, dtype=xy.dtype, device=xy.device)
+    xmin = torch.minimum(torch.where(net_mask, x, big).amin(dim=-1),
+                         net_fix[..., 0])
+    xmax = torch.maximum(torch.where(net_mask, x, -big).amax(dim=-1),
+                         net_fix[..., 1])
+    ymin = torch.minimum(torch.where(net_mask, y, big).amin(dim=-1),
+                         net_fix[..., 2])
+    ymax = torch.maximum(torch.where(net_mask, y, -big).amax(dim=-1),
+                         net_fix[..., 3])
+    valid = net_mask.any(dim=-1) | (net_fix[..., 0] <= net_fix[..., 1])
+    return torch.where(valid, (xmax - xmin) + (ymax - ymin),
+                       torch.zeros((), dtype=xy.dtype, device=xy.device))
+
+
+def net_hpwl_fixed(pos: torch.Tensor, net_pins: torch.Tensor,
+                   net_mask: torch.Tensor, net_fix: torch.Tensor
+                   ) -> torch.Tensor:
+    """Per-net HPWL under fixed boxes.  Same contract as :func:`net_hpwl`
+    plus ``net_fix`` (N, 4)."""
+    return net_hpwl_fixed_from_xy(pos[net_pins.long()], net_mask, net_fix)
+
+
+def hpwl_fixed(pos: torch.Tensor, net_pins: torch.Tensor,
+               net_mask: torch.Tensor, net_fix: torch.Tensor) -> torch.Tensor:
+    """Total HPWL of one placement with fixed terminals (scalar)."""
+    return net_hpwl_fixed(pos, net_pins, net_mask, net_fix).sum()
+
+
+def _touched_fix(net_fix: torch.Tensor, touched: torch.Tensor
+                 ) -> torch.Tensor:
+    """The touched nets' boxes; pad and duplicate entries (>= N) get
+    EMPTY_BOX, not the box of net N - 1 that their clamped gather reads."""
+    n = net_fix.shape[-2]
+    tc = torch.clamp(touched, max=n - 1).long()
+    fix = torch.gather(net_fix, -2, tc[..., None].expand(*tc.shape, 4))
+    empty = torch.tensor(EMPTY_BOX, dtype=net_fix.dtype,
+                         device=net_fix.device)
+    return torch.where((touched < n)[..., None], fix, empty)
+
+
+def hpwl_delta_fixed(slot_xy: torch.Tensor, cand_slot_of: torch.Tensor,
+                     net_pins: torch.Tensor, net_mask: torch.Tensor,
+                     per_net_cost: torch.Tensor, touched: torch.Tensor,
+                     net_fix: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rescore the ``touched`` nets under fixed boxes — the incremental
+    counterpart of :func:`hpwl_delta`, same contract plus ``net_fix``."""
+    pins, mask, old = _touched_view(net_pins, net_mask, per_net_cost,
+                                    touched)
+    xy = slot_xy[cand_slot_of[pins.long()].long()]
+    new_vals = net_hpwl_fixed_from_xy(xy, mask,
+                                      _touched_fix(net_fix, touched))
+    return new_vals, (new_vals - old).sum()
+
+
+# ---------------------------------------------------------------------------
 # kernel plumbing
 # ---------------------------------------------------------------------------
 def _lib():
@@ -133,11 +226,9 @@ def _lib():
     lib = load(_SOURCE)
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pnr_net_hpwl.argtypes = [i, i, i, i] + [p] * 7
-        lib.pnr_net_hpwl.restype = i
-        lib.pnr_anneal.argtypes = [i] * 9 + [p] * 16
+        lib.pnr_anneal.argtypes = [i] * 9 + [p] * 18
         lib.pnr_anneal.restype = i
-        lib.pnr_anneal_smem_bytes.argtypes = [i] * 5
+        lib.pnr_anneal_smem_bytes.argtypes = [i] * 7
         lib.pnr_anneal_smem_bytes.restype = ctypes.c_longlong
         lib.pnr_error_string.argtypes = [i]
         lib.pnr_error_string.restype = ctypes.c_char_p
@@ -168,62 +259,36 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(x.data_ptr())
+def _ptr(x: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if x is None else x.data_ptr())
 
 
 # ---------------------------------------------------------------------------
-# K1: batched per-net HPWL
+# per-net HPWL of a batch of placements (K1's function, K2's prologue)
 # ---------------------------------------------------------------------------
 def net_hpwl_rows_plain(prob: torch.Tensor, slot_of: torch.Tensor,
                         slot_xy: torch.Tensor, net_pins: torch.Tensor,
-                        net_mask: torch.Tensor) -> torch.Tensor:
-    """Plain version of K1: ``out[r] = net_hpwl(slot_xy[p][slot_of[r]],
-    net_pins[p], net_mask[p])`` with ``p = prob[r]``."""
+                        net_mask: torch.Tensor,
+                        net_fix: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """``out[r] = net_hpwl(slot_xy[p][slot_of[r]], net_pins[p],
+    net_mask[p])`` with ``p = prob[r]`` (:func:`net_hpwl_fixed` with
+    ``net_fix[p]`` when boxes are given): the reference's Pallas
+    ``_hpwl_kernel`` over R placements, each over its own problem.
+
+    prob: (R,) int32; slot_of: (R, E) int32 entity -> slot; slot_xy: (P,
+    E, 2) float32; net_pins: (P, N, D) int32; net_mask: (P, N, D) bool;
+    net_fix: (P, N, 4) float32 or None.  Returns (R, N) float32.  K2
+    computes this in its prologue (``pnc0_out`` of :func:`anneal_chains`).
+    """
     p = prob.long()
     pins = net_pins[p].long()                                 # (R, N, D)
     slots = torch.gather(slot_of.long(), 1,
                          pins.flatten(1)).view(pins.shape)    # (R, N, D)
     xy = slot_xy[p[:, None, None], slots]                     # (R, N, D, 2)
-    return net_hpwl_from_xy(xy, net_mask[p])
-
-
-def net_hpwl_rows(prob: torch.Tensor, slot_of: torch.Tensor,
-                  slot_xy: torch.Tensor, net_pins: torch.Tensor,
-                  net_mask: torch.Tensor) -> torch.Tensor:
-    """Per-net HPWL of R placements, each over its own problem.
-
-    prob: (R,) int32 problem index per row; slot_of: (R, E) int32 entity
-    -> slot; slot_xy: (P, E, 2) float32; net_pins: (P, N, D) int32;
-    net_mask: (P, N, D) bool.  Returns (R, N) float32.
-
-    Kernel K1 (``net_hpwl_kernel``): one thread per (row, net), the pin
-    reduction with the reference's ``+-1e9`` sentinels; replaces the
-    Pallas ``_hpwl_kernel`` (reference ``kernels/pnr_cost.py``).  Bytes
-    bound it: each pin's entity, slot and coordinate is read once.
-    """
-    dev = slot_of.device
-    if dev.type != "cuda":
-        return net_hpwl_rows_plain(prob, slot_of, slot_xy, net_pins,
-                                   net_mask)
-    r, e = slot_of.shape
-    p, n, d = net_pins.shape
-    _check("prob", prob, torch.int32, (r,), dev)
-    _check("slot_of", slot_of, torch.int32, (r, e), dev)
-    _check("slot_xy", slot_xy, torch.float32, (p, e, 2), dev)
-    _check("net_pins", net_pins, torch.int32, (p, n, d), dev)
-    _check("net_mask", net_mask, torch.bool, (p, n, d), dev)
-    out = torch.empty((r, n), dtype=torch.float32, device=dev)
-    lib = _lib()
-    rc = lib.pnr_net_hpwl(r, n, d, e, _ptr(prob), _ptr(slot_of),
-                          _ptr(slot_xy), _ptr(net_pins), _ptr(net_mask),
-                          _ptr(out), _stream(dev))
-    _check_rc(lib, rc, "net_hpwl_kernel")
-    net_hpwl_rows.launches += 1
-    return out
-
-
-net_hpwl_rows.launches = 0
+    if net_fix is None:
+        return net_hpwl_from_xy(xy, net_mask[p])
+    return net_hpwl_fixed_from_xy(xy, net_mask[p], net_fix[p])
 
 
 # ---------------------------------------------------------------------------
@@ -234,11 +299,14 @@ AnnealOut = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
 
 
 def anneal_chains_plain(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
-                        active, a, t, log_u, slot0, pnc0, *,
+                        active, a, t, log_u, slot0, net_fix=None, *,
                         full: bool = False, telemetry: bool = False,
+                        pnc0_out: Optional[torch.Tensor] = None,
                         work: Optional[dict] = None) -> AnnealOut:
     """Plain version of K2: every chain's sweep, vectorised over chains
-    with a Python loop over steps (the reference ``fori_loop`` body).
+    with a Python loop over steps (the reference ``fori_loop`` body),
+    after the starting per-net costs (:func:`net_hpwl_rows_plain`),
+    written to ``pnc0_out`` when given.
 
     ``work``, when given, accumulates what this run's data made the
     kernel do: ``steps`` (chain-steps), ``nets`` (nets rescored) and
@@ -253,10 +321,15 @@ def anneal_chains_plain(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
     p = prob.long()
     pins_r = net_pins[p].long()                               # (R, N, D)
     mask_r = net_mask[p]
+    fix_r = None if net_fix is None else net_fix[p]           # (R, N, 4)
     xy_r = slot_xy[p]                                         # (R, E, 2)
     en_r = ent_nets[p].long()                                 # (R, E, K)
     temps_r = temps[p]
     active_r = active[p]
+    pnc0 = net_hpwl_rows_plain(prob, slot0, slot_xy, net_pins, net_mask,
+                               net_fix)
+    if pnc0_out is not None:
+        pnc0_out.copy_(pnc0)
     slot_of = slot0.long().clone()
     occ = torch.empty_like(slot_of)
     occ.scatter_(1, slot_of, torch.arange(e_n, device=dev).expand(r_n, e_n))
@@ -280,6 +353,11 @@ def anneal_chains_plain(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
         return torch.gather(xy_r, 1, s.flatten(1)[..., None].expand(
             -1, -1, 2)).view(*pins.shape, 2)
 
+    def score(xy, mask, fix):
+        if fix is None:
+            return net_hpwl_from_xy(xy, mask)
+        return net_hpwl_fixed_from_xy(xy, mask, fix)
+
     for i in range(s_n):
         ai = a[:, i].long()
         ti = t[:, i].long()
@@ -287,8 +365,8 @@ def anneal_chains_plain(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
         sa = slot_of[rows, ai]
         sb = slot_of[rows, bi]
         if full:
-            new = net_hpwl_from_xy(swapped_xy(pins_r, ai, bi, sa, sb),
-                                   mask_r).sum(dim=1)
+            new = score(swapped_xy(pins_r, ai, bi, sa, sb), mask_r,
+                        fix_r).sum(dim=1)
             if work is not None:
                 work["nets"] = work.get("nets", 0) + r_n * n_n
                 work["pins"] = work.get("pins", 0) + int(mask_r.sum())
@@ -302,8 +380,8 @@ def anneal_chains_plain(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
                 -1, -1, pins_r.shape[2]))
             mask = torch.gather(mask_r, 1, tc[..., None].expand(
                 -1, -1, mask_r.shape[2])) & valid[..., None]
-            new_vals = net_hpwl_from_xy(swapped_xy(pins, ai, bi, sa, sb),
-                                        mask)
+            fix = None if fix_r is None else _touched_fix(fix_r, tn)
+            new_vals = score(swapped_xy(pins, ai, bi, sa, sb), mask, fix)
             old = torch.where(valid, torch.gather(pnc, 1, tc),
                               torch.zeros((), device=dev))
             new = cur + (new_vals - old).sum(dim=1)
@@ -356,51 +434,52 @@ def pin_table(net_pins: torch.Tensor, net_mask: torch.Tensor
     return tab
 
 
-def anneal_layout(n: int, d: int, e: int, k: int) -> Tuple[int, bool, int]:
+def anneal_layout(n: int, d: int, e: int, k: int, fix: bool = False
+                  ) -> Tuple[int, bool, bool, int]:
     """K2's launch layout for a problem of N nets, D pins a net, E entities
-    and K nets an entity: ``(W, stage, smem)`` — the pin table's row
-    width, whether the problem's tables are staged in shared memory, and
-    a block's shared-memory bytes (``pnr_anneal_smem_bytes`` in
+    and K nets an entity (with a fixed box a net when ``fix``): ``(W,
+    stage, chain, smem)`` — the pin table's row width, whether the
+    problem's tables are staged in shared memory, whether each chain's
+    state (slots, occupants and per-net costs, ``(2E + N) * 4`` bytes) is,
+    and a block's shared-memory bytes (``pnr_anneal_smem_bytes`` in
     ``csrc/pnr_anneal.cu``).
 
     The tables stay in global memory when they do not fit beside the
-    chain's state; ``ValueError`` when that state alone exceeds
-    :data:`SMEM_LIMIT`.
+    chain's state, and the chain's state goes to a global scratch when it
+    alone exceeds :data:`SMEM_LIMIT`.
     """
     w = max(8, (d + 4) // 4 * 4)
-    tables = (n * w + 2 * e + e * k) * 4
+    tables = (n * w + (4 * n if fix else 0) + 2 * e + e * k) * 4
     chain = (2 * e + n) * 4
     if chain > SMEM_LIMIT:
-        raise ValueError(f"anneal_chains: {e} entities and {n} nets need "
-                         f"{chain} bytes of shared memory a chain "
-                         f"(> {SMEM_LIMIT}, 227 KB)")
+        return w, False, False, 0
     stage = tables + chain <= SMEM_LIMIT
-    return w, stage, (tables if stage else 0) + chain
+    return w, stage, True, (tables if stage else 0) + chain
 
 
 def _anneal_checks(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
-                   active, a, t, log_u, slot0, pnc0):
-    """The kernels' argument checks; returns (R, S, N, D, E, K, P)."""
+                   active, a, t, log_u, slot0, net_fix, pnc0_out):
+    """The kernel's argument checks; returns (R, S, N, D, E, K, P)."""
     dev = slot0.device
     r, e = slot0.shape
     p, n, d = net_pins.shape
     k = ent_nets.shape[2]
     s = a.shape[1]
-    if 2 * k > _MAX_TOUCHED:
-        raise ValueError(f"anneal_chains: {k} nets on one entity exceed the "
-                         f"kernel's {_MAX_TOUCHED // 2}")
-    for name, x, dt, shape in (
-            ("prob", prob, torch.int32, (r,)),
-            ("slot_xy", slot_xy, torch.float32, (p, e, 2)),
-            ("net_pins", net_pins, torch.int32, (p, n, d)),
-            ("net_mask", net_mask, torch.bool, (p, n, d)),
-            ("ent_nets", ent_nets, torch.int32, (p, e, k)),
-            ("temps", temps, torch.float32, (p, s)),
-            ("active", active, torch.bool, (p, s)),
-            ("a", a, torch.int32, (r, s)), ("t", t, torch.int32, (r, s)),
-            ("log_u", log_u, torch.float32, (r, s)),
-            ("slot0", slot0, torch.int32, (r, e)),
-            ("pnc0", pnc0, torch.float32, (r, n))):
+    checks = [("prob", prob, torch.int32, (r,)),
+              ("slot_xy", slot_xy, torch.float32, (p, e, 2)),
+              ("net_pins", net_pins, torch.int32, (p, n, d)),
+              ("net_mask", net_mask, torch.bool, (p, n, d)),
+              ("ent_nets", ent_nets, torch.int32, (p, e, k)),
+              ("temps", temps, torch.float32, (p, s)),
+              ("active", active, torch.bool, (p, s)),
+              ("a", a, torch.int32, (r, s)), ("t", t, torch.int32, (r, s)),
+              ("log_u", log_u, torch.float32, (r, s)),
+              ("slot0", slot0, torch.int32, (r, e))]
+    if net_fix is not None:
+        checks.append(("net_fix", net_fix, torch.float32, (p, n, 4)))
+    if pnc0_out is not None:
+        checks.append(("pnc0_out", pnc0_out, torch.float32, (r, n)))
+    for name, x, dt, shape in checks:
         _check(name, x, dt, shape, dev)
     return r, s, n, d, e, k, p
 
@@ -413,16 +492,19 @@ def _anneal_outputs(r, e, dev):
 
 
 def anneal_chains(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
-                  active, a, t, log_u, slot0, pnc0, *, full: bool = False,
-                  telemetry: bool = False) -> AnnealOut:
+                  active, a, t, log_u, slot0, net_fix=None, *,
+                  full: bool = False, telemetry: bool = False,
+                  pnc0_out: Optional[torch.Tensor] = None) -> AnnealOut:
     """Anneal R chains, each over its own problem, for S steps.
 
     Problem arrays (P problems): slot_xy (P, E, 2) float32, net_pins and
     net_mask (P, N, D) int32/bool, ent_nets (P, E, K) int32 (entries >= N
-    are padding), temps (P, S) float32, active (P, S) bool.  Per chain:
-    prob (R,) int32, move streams a / t (R, S) int32 and log_u (R, S)
-    float32, starting slots slot0 (R, E) int32 and their per-net costs
-    pnc0 (R, N) float32.
+    are padding), temps (P, S) float32, active (P, S) bool, and, for the
+    hierarchical placer's sub-problems, net_fix (P, N, 4) float32 fixed
+    boxes (None on the flat path).  Per chain: prob (R,) int32, move
+    streams a / t (R, S) int32 and log_u (R, S) float32, and the starting
+    slots slot0 (R, E) int32.  ``pnc0_out`` (R, N) float32, when given,
+    receives each chain's starting per-net costs.
 
     Each step swaps entity ``a`` with the occupant ``b`` of slot ``t``,
     rescores the nets the swap touches (every net with ``full``), accepts
@@ -432,35 +514,46 @@ def anneal_chains(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
     the last two only with ``telemetry`` (else None).
 
     Kernel K2 (``anneal_kernel``): a warp a chain for the whole sweep, one
-    chain a block with its problem's tables (pin table, ent_nets, slot
-    coordinates) staged in shared memory and its own state there too; the
-    delta rescoring of the reference's Pallas ``_hpwl_delta_kernel`` fused
-    into each step.  The latency of one step's dependent loads and
-    reductions, not bytes, sets its pace (:func:`anneal_layout` gives the
-    launch layout).
+    chain a block with its problem's tables (pin table, fixed boxes,
+    ent_nets, slot coordinates) staged in shared memory and its own state
+    there too (each in global memory when it does not fit); its prologue
+    scores the start (the reference's Pallas ``_hpwl_kernel``, K1), and
+    the delta rescoring of the Pallas ``_hpwl_delta_kernel`` is fused into
+    each step.  The latency of one step's dependent loads and reductions,
+    not bytes, sets its pace (:func:`anneal_layout` gives the launch
+    layout).  The kernel keeps at
+    most two touched nets a lane: a problem whose entities lie on more
+    than 32 nets each (the hierarchical placer's cluster level) is scored
+    in full at every step, which accepts the same moves as delta
+    scoring, since every cost is exact.
     """
     dev = slot0.device
     if dev.type != "cuda":
         return anneal_chains_plain(prob, slot_xy, net_pins, net_mask,
                                    ent_nets, temps, active, a, t, log_u,
-                                   slot0, pnc0, full=full,
-                                   telemetry=telemetry)
+                                   slot0, net_fix, full=full,
+                                   telemetry=telemetry, pnc0_out=pnc0_out)
     r, s, n, d, e, k, p = _anneal_checks(prob, slot_xy, net_pins, net_mask,
                                          ent_nets, temps, active, a, t,
-                                         log_u, slot0, pnc0)
-    w, stage, smem = anneal_layout(n, d, e, k)
+                                         log_u, slot0, net_fix, pnc0_out)
+    fix = net_fix is not None
+    full = full or 2 * k > _MAX_TOUCHED
+    w, stage, chain, smem = anneal_layout(n, d, e, k, fix)
     lib = _lib()
-    if lib.pnr_anneal_smem_bytes(n, w, e, k, int(stage)) != smem:
+    if lib.pnr_anneal_smem_bytes(n, w, e, k, int(stage), int(fix),
+                                 int(chain)) != smem:
         raise RuntimeError("anneal_layout and csrc/pnr_anneal.cu disagree "
                            "on K2's shared memory")
     tab = pin_table(net_pins, net_mask)
+    scratch = None if chain else torch.empty((r, 2 * e + n),
+                                             dtype=torch.int32, device=dev)
     best_slot, best, accepts, curve = _anneal_outputs(r, e, dev)
     rc = lib.pnr_anneal(r, s, n, w, e, k, int(stage), int(full),
                         int(telemetry), _ptr(prob), _ptr(slot_xy), _ptr(tab),
                         _ptr(ent_nets), _ptr(temps), _ptr(active), _ptr(a),
-                        _ptr(t), _ptr(log_u), _ptr(slot0), _ptr(pnc0),
-                        _ptr(best_slot), _ptr(best), _ptr(accepts),
-                        _ptr(curve), _stream(dev))
+                        _ptr(t), _ptr(log_u), _ptr(slot0), _ptr(net_fix),
+                        _ptr(scratch), _ptr(pnc0_out), _ptr(best_slot),
+                        _ptr(best), _ptr(accepts), _ptr(curve), _stream(dev))
     _check_rc(lib, rc, "anneal_kernel")
     anneal_chains.launches += 1
     return (best_slot, best, accepts if telemetry else None,

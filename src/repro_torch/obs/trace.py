@@ -123,6 +123,10 @@ class Tracer:
         self._tracks.setdefault(track, []).append(sp)
         return sp
 
+    def open_spans(self) -> List[str]:
+        """Names of the spans open now, outermost first."""
+        return [sp.name for sp in self._stack]
+
     def _push(self, sp: Span) -> None:
         sp.t0 = sp.t1 = self.now()
         (self._stack[-1].children if self._stack else self.roots).append(sp)

@@ -1,7 +1,8 @@
 """The port's Explorer (``device="cpu"``) against the JAX package's on the
 ML suite with place-and-route on: records, dispatch counts, memoization,
-the jsonl round trip, and the placement mode that is not ported yet.
-The schedule and simulate stages are held in ``test_torch_sim.py``.
+the jsonl round trip, and hierarchical placement (``pnr_mode=
+"hierarchical"``).  The schedule and simulate stages are held in
+``test_torch_sim.py``.
 
 Tolerance: exact equality of every ``ExploreRecord`` field (the pnr
 columns come from integer HPWL and bit-identical move streams).  Mining
@@ -83,7 +84,25 @@ def test_jsonl_round_trip(runs, tmp_path):
     assert read_manifest(path)["torch"]
 
 
-def test_hierarchical_not_ported():
-    cfg = _cfg(TConfig, TMining, TOptions, TSpec, pnr_mode="hierarchical")
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        TExplorer(t_ml_graphs(), cfg, device="cpu").pnr()
+def test_hierarchical_records_match_reference():
+    # a 16x16 fabric: the auto grid is 2x2 clusters of 8x8 regions
+    def cfg(Config, Mining, Options, Spec):
+        return Config(mode="per_app", max_merge=1,
+                      mining=Mining(min_support=3, max_pattern_nodes=4,
+                                    time_budget_s=600.0),
+                      fabric=Options(spec=Spec(rows=16, cols=16), chains=2,
+                                     sweeps=3), pnr_mode="hierarchical")
+    ref = RExplorer(r_ml_graphs(), cfg(RConfig, RMining, ROptions, RSpec))
+    port = TExplorer(t_ml_graphs(), cfg(TConfig, TMining, TOptions, TSpec),
+                     device="cpu")
+    want = [r.to_dict() for r in ref.run().records()]
+    got = [r.to_dict() for r in port.run().records()]
+    assert want and got == want
+    assert port.stats["pnr_dispatch"] == ref.stats["pnr_dispatch"] > 0
+    # the memo key carries pnr_mode: a flat run re-places every pair
+    placed = port.stats["pnr"]
+    flat = port.with_config(pnr_mode="flat")
+    flat.pnr()
+    assert flat.stats["pnr"] == 2 * placed
+    assert any(p.placement.cluster_grid == 2
+               for p in port.pnr().values())

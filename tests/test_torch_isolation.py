@@ -25,6 +25,7 @@ def test_import_leaves_jax_and_repro_out():
             "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
             "import repro_torch.kernels.flash_attention\n"
             "import repro_torch.kernels.mamba_scan\n"
+            "import repro_torch.fabric.cluster, repro_torch.explore.persist\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
             "or m.startswith('repro.') or m == 'triton' "
@@ -52,7 +53,8 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
     from repro_torch.apps import ml_graphs
     from repro_torch.explore import ExploreConfig, Explorer
     from repro_torch.fabric import (FabricSpec, anneal_jax, anneal_jax_batch,
-                                    lower, place, synthetic_netlist)
+                                    lower, place, place_hierarchical,
+                                    synthetic_netlist)
 
     _no_card(monkeypatch)
     spec = FabricSpec(rows=4, cols=4)
@@ -61,6 +63,8 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
     for call in (lambda: place(nl, spec, chains=2, sweeps=1),
                  lambda: anneal_jax(p, chains=2, sweeps=1),
                  lambda: anneal_jax_batch([p], chains=2, sweeps=1),
+                 lambda: place_hierarchical(nl, spec, cluster_grid=2,
+                                            chains=2, sweeps=1),
                  lambda: Explorer(ml_graphs(), ExploreConfig())):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -125,15 +129,18 @@ def test_place_and_route_needs_a_card_by_default(monkeypatch):
 def test_cuda_wrappers_never_run_plain_on_cpu_tensors_silently():
     # a CPU tensor takes the plain version and counts no launch
     from repro_torch.kernels import pnr_cost
-    before = pnr_cost.net_hpwl_rows.launches
-    out = pnr_cost.net_hpwl_rows(
-        torch.zeros(1, dtype=torch.int32),
-        torch.arange(4, dtype=torch.int32)[None],
-        torch.arange(8, dtype=torch.float32).view(1, 4, 2),
-        torch.tensor([[[0, 3]]], dtype=torch.int32),
-        torch.ones((1, 1, 2), dtype=torch.bool))
-    assert pnr_cost.net_hpwl_rows.launches == before
-    assert out.tolist() == [[12.0]]
+    before = pnr_cost.anneal_chains.launches
+    i32 = dict(dtype=torch.int32)
+    pnc0 = torch.zeros((1, 1))
+    out = pnr_cost.anneal_chains(
+        torch.zeros(1, **i32), torch.arange(8.0).view(1, 4, 2),
+        torch.tensor([[[0, 3]]], **i32), torch.ones((1, 1, 2), dtype=bool),
+        torch.tensor([[[0], [1], [1], [0]]], **i32), torch.zeros((1, 0)),
+        torch.zeros((1, 0), dtype=bool), torch.zeros((1, 0), **i32),
+        torch.zeros((1, 0), **i32), torch.zeros((1, 0)),
+        torch.arange(4, **i32)[None], pnc0_out=pnc0)
+    assert pnr_cost.anneal_chains.launches == before
+    assert pnc0.tolist() == [[12.0]] and out[1].tolist() == [12.0]
 
 
 def test_smoke_cli_cpu():

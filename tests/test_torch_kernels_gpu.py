@@ -55,22 +55,30 @@ def _problems():
 
 
 def test_k1_matches_plain():
+    # K1's function is K2's prologue: the starting per-net costs it writes
+    # to pnc0_out, with zero steps and with a sweep after them
     _need_card()
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
+    from repro_torch.fabric.place import KERNEL_INPUTS, batch_inputs
     for p in _problems():
-        e = p.n_entities
-        slots = np.stack([rng.permutation(e) for _ in range(5)])
-        args = [torch.zeros(5, dtype=torch.int32),
-                torch.as_tensor(slots, dtype=torch.int32),
-                torch.as_tensor(p.slot_xy)[None],
-                torch.as_tensor(p.net_pins)[None],
-                torch.as_tensor(p.net_mask)[None]]
-        before = pnr_cost.net_hpwl_rows.launches
-        got = pnr_cost.net_hpwl_rows(*[a.to(dev).contiguous() for a in args])
-        torch.cuda.synchronize()
-        assert pnr_cost.net_hpwl_rows.launches == before + 1
-        assert torch.equal(got.cpu(), pnr_cost.net_hpwl_rows_plain(*args))
+        for sweeps in (0, 2):
+            d = batch_inputs([p], chains=5, seed=1, sweeps=max(sweeps, 1))
+            if sweeps == 0:
+                for k in ("a", "t", "log_u", "temps", "active"):
+                    d[k] = d[k][:, :0].contiguous()
+            args = [d[k].cuda() for k in KERNEL_INPUTS]
+            got = torch.full((5, d["net_pins"].shape[1]), -1.0,
+                             device="cuda")
+            before = pnr_cost.anneal_chains.launches
+            out = pnr_cost.anneal_chains(*args, pnc0_out=got)
+            torch.cuda.synchronize()
+            assert pnr_cost.anneal_chains.launches == before + 1
+            want = pnr_cost.net_hpwl_rows_plain(
+                d["prob"], d["slot0"], d["slot_xy"], d["net_pins"],
+                d["net_mask"])
+            assert torch.equal(got.cpu(), want)
+            if sweeps == 0:         # no step: the start is the best
+                assert torch.equal(out[0].cpu(), d["slot0"])
+                assert torch.equal(out[1].cpu(), want.sum(dim=1))
 
 
 @pytest.mark.parametrize("score_mode", ["delta", "full"])
@@ -109,24 +117,32 @@ def _image_problems():
 
 
 def _k2_args(problems, chains, sweeps=32):
+    """K2's inputs on the card (``net_fix`` last when a problem has
+    fixed boxes)."""
     from repro_torch.fabric.place import KERNEL_INPUTS, batch_inputs
     d = {k: v.cuda() for k, v in batch_inputs(
         problems, chains=chains, seed=5, sweeps=sweeps).items()}
-    pnc0 = pnr_cost.net_hpwl_rows(d["prob"], d["slot0"], d["slot_xy"],
-                                  d["net_pins"], d["net_mask"])
-    return [d[k] for k in KERNEL_INPUTS] + [pnc0]
+    return [d[k] for k in KERNEL_INPUTS] + (
+        [d["net_fix"]] if "net_fix" in d else [])
 
 
 def _k2_check(args, label):
-    """K2 bit-equal to its plain version in the three modes."""
+    """K2 bit-equal to its plain version in the three modes, its
+    prologue's starting costs too."""
     for full, tele in ((False, False), (True, False), (False, True)):
+        r, n = args[10].shape[0], args[2].shape[1]
+        got0 = torch.full((r, n), -1.0, device="cuda")
+        want0 = torch.full((r, n), -2.0, device="cuda")
         before = pnr_cost.anneal_chains.launches
-        got = pnr_cost.anneal_chains(*args, full=full, telemetry=tele)
+        got = pnr_cost.anneal_chains(*args, full=full, telemetry=tele,
+                                     pnc0_out=got0)
         assert pnr_cost.anneal_chains.launches == before + 1
         torch.cuda.synchronize()
-        want = pnr_cost.anneal_chains_plain(*args, full=full, telemetry=tele)
+        want = pnr_cost.anneal_chains_plain(*args, full=full, telemetry=tele,
+                                            pnc0_out=want0)
         torch.cuda.synchronize()
         assert _same(got, want), (label, full, tele)
+        assert torch.equal(got0, want0), (label, "pnc0")
 
 
 def test_k2_image_suite_signatures_match_plain():
@@ -210,9 +226,7 @@ def _synthetic_k2(rng, p_n, chains, e, n, d, s=200):
             active, rng.integers(0, e, size=(r, s)).astype(np.int32),
             rng.integers(0, e, size=(r, s)).astype(np.int32),
             np.log(rng.random((r, s)) + 1e-12).astype(np.float32), slot0)
-    ts = [torch.as_tensor(v).cuda() for v in vals]
-    return ts + [pnr_cost.net_hpwl_rows(ts[0], ts[10], ts[1], ts[2],
-                                        ts[3])], k
+    return [torch.as_tensor(v).cuda() for v in vals], k
 
 
 @pytest.mark.parametrize("p_n,chains,e,n,d,want_k", [
@@ -236,37 +250,146 @@ def test_k2_wide_nets_and_row_orders_match_plain(p_n, chains, e, n, d,
     e_n, n_n = args[1].shape[1], args[2].shape[1]
     w = pnr_cost.anneal_layout(n_n, d, e_n, k)[0]
     monkeypatch.setattr(pnr_cost, "SMEM_LIMIT", pnr_cost._lib()
-                        .pnr_anneal_smem_bytes(n_n, w, e_n, k, 0))
-    assert not pnr_cost.anneal_layout(n_n, d, e_n, k)[1]
+                        .pnr_anneal_smem_bytes(n_n, w, e_n, k, 0, 0, 1))
+    assert pnr_cost.anneal_layout(n_n, d, e_n, k)[1:3] == (False, True)
     _k2_check(args, ("unstaged", k))
+    # the chain's own state in the global scratch too, as when it does not
+    # fit (the grouped path's 128x128 bucket, the 256x256 deblock)
+    monkeypatch.setattr(pnr_cost, "SMEM_LIMIT", pnr_cost.SMEM_LIMIT - 1)
+    assert pnr_cost.anneal_layout(n_n, d, e_n, k) == (w, False, False, 0)
+    _k2_check(args, ("chain in global memory", k))
+
+
+def _hier_level_problems(size, g, sweeps=4):
+    """The problems each level of the hierarchical placer hands to the
+    annealer (cluster, detail groups, deblock), captured from a run on
+    the CPU."""
+    import sys
+    place_mod = sys.modules["repro_torch.fabric.place"]
+    spec = FabricSpec(rows=size, cols=size)
+    nl = synthetic_netlist(spec, seed=size, locality=3)
+    calls = []
+    orig = place_mod.anneal_jax_batch
+
+    def record(problems, **kw):
+        calls.append(list(problems))
+        return orig(problems, **kw)
+
+    place_mod.anneal_jax_batch = record
+    try:
+        place_mod.place_hierarchical(nl, spec, cluster_grid=g, chains=2,
+                                     sweeps=sweeps, seed=1, device="cpu")
+    finally:
+        place_mod.anneal_jax_batch = orig
+    return calls
+
+
+@pytest.mark.parametrize("size,g", [(16, 2), (24, 3)])
+def test_k2_fixed_box_levels_match_plain(size, g):
+    # every level's problems as the hierarchical placer builds them: the
+    # cluster level (no boxes, more than 32 nets a cluster: full scoring),
+    # the detail groups and the deblock (half-integer boxes, several
+    # problems a launch)
+    _need_card()
+    calls = _hier_level_problems(size, g)
+    assert calls[0][0].net_fix is None
+    assert all(p.net_fix is not None for c in calls[1:] for p in c)
+    assert any(((p.net_fix[:, 0] <= p.net_fix[:, 1])
+                & (p.net_fix[:, 0] % 1 == 0.5)).any()
+               for c in calls[1:] for p in c)     # half-integer boxes
+    for i, probs in enumerate(calls):
+        _k2_check(_k2_args(probs, chains=3, sweeps=4), ("level", i))
+
+
+def _boxed_k2(rng, p_n, chains, e, n, d, s=150):
+    """Synthetic problems with fixed boxes: integer, half-integer and empty
+    boxes, and nets with no movable pin (scored by their box alone)."""
+    args, _ = _synthetic_k2(rng, p_n, chains, e, n, d, s)
+    mask = args[3].cpu().clone()
+    mask[:, :n // 5] = False              # pinless nets
+    args[3] = mask.cuda()
+    lo = rng.integers(-6, 10, size=(p_n, n, 2)) / 2.0
+    ext = rng.integers(0, 8, size=(p_n, n, 2)) / 2.0
+    fix = np.stack([lo[..., 0], lo[..., 0] + ext[..., 0],
+                    lo[..., 1], lo[..., 1] + ext[..., 1]], -1)
+    empty = rng.random((p_n, n)) < 0.3
+    fix[empty] = pnr_cost.EMPTY_BOX
+    fix[:, 0] = pnr_cost.EMPTY_BOX         # a pinless net with no box
+    return args + [torch.as_tensor(fix, dtype=torch.float32).cuda()]
+
+
+@pytest.mark.parametrize("p_n,chains,e,n,d", [
+    (3, 3, 24, 20, 5), (2, 5, 24, 60, 12), (2, 4, 64, 40, 40)])
+def test_k2_fixed_boxes_match_plain(p_n, chains, e, n, d, monkeypatch):
+    _need_card()
+    rng = np.random.default_rng(7 * e + n + d)
+    args = _boxed_k2(rng, p_n, chains, e, n, d)
+    assert (~args[3].any(dim=-1) & (args[11][..., 0] <= args[11][..., 1])
+            ).any()                        # a net scored by its box alone
+    _k2_check(args, ("boxes", p_n))
+    # the tables, boxes included, left in global memory
+    e_n, n_n, k = args[1].shape[1], args[2].shape[1], args[4].shape[2]
+    w = pnr_cost.anneal_layout(n_n, d, e_n, k, True)[0]
+    monkeypatch.setattr(pnr_cost, "SMEM_LIMIT", pnr_cost._lib()
+                        .pnr_anneal_smem_bytes(n_n, w, e_n, k, 0, 1, 1))
+    assert pnr_cost.anneal_layout(n_n, d, e_n, k, True)[1:3] == (False, True)
+    _k2_check(args, ("boxes unstaged", p_n))
+    # and the chain's state in the global scratch
+    monkeypatch.setattr(pnr_cost, "SMEM_LIMIT", pnr_cost.SMEM_LIMIT - 1)
+    assert pnr_cost.anneal_layout(n_n, d, e_n, k, True)[2:] == (False, 0)
+    _k2_check(args, ("boxes, chain in global memory", p_n))
+
+
+@pytest.mark.parametrize("score_mode", ["delta", "full"])
+def test_place_hierarchical_on_card_equals_cpu(score_mode):
+    _need_card()
+    from repro_torch.fabric import place_hierarchical
+    spec = FabricSpec(rows=24, cols=24)
+    nl = synthetic_netlist(spec, seed=2, locality=3)
+    kw = dict(cluster_grid=3, chains=3, sweeps=3, seed=4,
+              score_mode=score_mode)
+    before = pnr_cost.anneal_chains.launches
+    got = place_hierarchical(nl, spec, device="cuda", **kw)
+    assert pnr_cost.anneal_chains.launches > before
+    want = place_hierarchical(nl, spec, device="cpu", **kw)
+    assert np.array_equal(got.cluster_slots, want.cluster_slots)
+    assert got.detail_slots.keys() == want.detail_slots.keys()
+    assert all(np.array_equal(got.detail_slots[k], want.detail_slots[k])
+               for k in got.detail_slots)
+    assert want.deblock_slots is not None
+    assert np.array_equal(got.deblock_slots, want.deblock_slots)
+    assert got.level_costs == want.level_costs
+    assert got.coords == want.coords and got.cost == want.cost
 
 
 def test_k2_refuses_oversized_problem():
+    # the earlier form refused a problem whose chain state alone exceeds
+    # 227 KB (here 240,000 B); that state now lives in a global scratch,
+    # and the chain equals its plain version
     _need_card()
-    dev = torch.device("cuda")
-    r, p, n, d, e, k, s = 1, 1, 20000, 2, 20000, 2, 4
-    z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
-    args = [z((r,), torch.int32), z((p, e, 2), torch.float32),
-            z((p, n, d), torch.int32), z((p, n, d), torch.bool),
-            z((p, e, k), torch.int32), z((p, s), torch.float32),
-            z((p, s), torch.bool), z((r, s), torch.int32),
-            z((r, s), torch.int32), z((r, s), torch.float32),
-            torch.arange(e, dtype=torch.int32, device=dev)[None],
-            z((r, n), torch.float32)]
-    with pytest.raises(ValueError, match="227 KB"):
-        pnr_cost.anneal_chains(*args)
+    rng = np.random.default_rng(20000)
+    args, k = _synthetic_k2(rng, 1, 2, 20000, 20000, 3, s=300)
+    e_n, n_n = args[1].shape[1], args[2].shape[1]
+    assert (2 * e_n + n_n) * 4 > pnr_cost.SMEM_LIMIT
+    assert pnr_cost.anneal_layout(n_n, 3, e_n, k)[1:] == (False, False, 0)
+    _k2_check(args, ("oversized", k))
 
 
 def test_wrapper_rejects_bad_inputs():
     _need_card()
     dev = torch.device("cuda")
-    slot_of = torch.arange(4, dtype=torch.int64, device=dev)[None]
+    p = _problems()[0]
+    args = _k2_args([p], chains=2, sweeps=2)
+    bad = list(args)
+    bad[10] = args[10].long()                       # slot0 in int64
     with pytest.raises(TypeError):
-        pnr_cost.net_hpwl_rows(
-            torch.zeros(1, dtype=torch.int32, device=dev), slot_of,
-            torch.zeros((1, 4, 2), device=dev),
-            torch.zeros((1, 1, 2), dtype=torch.int32, device=dev),
-            torch.ones((1, 1, 2), dtype=torch.bool, device=dev))
+        pnr_cost.anneal_chains(*bad)
+    with pytest.raises(ValueError):                 # boxes of the wrong width
+        pnr_cost.anneal_chains(*args, torch.zeros(
+            (1, args[2].shape[1], 3), device=dev))
+    with pytest.raises(ValueError):             # pnc0_out of the wrong shape
+        pnr_cost.anneal_chains(*args, pnc0_out=torch.zeros(
+            (1, 1), device=dev))
 
 
 # ---------------------------------------------------------------------------

@@ -142,3 +142,48 @@ def test_place_and_route_matches_reference():
     assert r.placement.cost == t.placement.cost
     assert dataclasses.asdict(r.routes) == dataclasses.asdict(t.routes)
     assert dataclasses.asdict(r.cost) == dataclasses.asdict(t.cost)
+
+
+def _with_boxes(rp, tp, seed):
+    """Copies of a (reference, port) problem pair with the same fixed
+    boxes: integer and half-integer corners, some EMPTY_BOX."""
+    from repro.kernels.pnr_cost import EMPTY_BOX
+    rng = np.random.default_rng(seed)
+    n = rp.net_pins.shape[0]
+    lo = rng.integers(-6, 2 * rp.spec.cols, size=(n, 2)) / 2.0
+    ext = rng.integers(0, 8, size=(n, 2)) / 2.0
+    fix = np.stack([lo[:, 0], lo[:, 0] + ext[:, 0], lo[:, 1],
+                    lo[:, 1] + ext[:, 1]], -1).astype(np.float32)
+    fix[rng.random(n) < 0.3] = EMPTY_BOX
+    return (dataclasses.replace(rp, net_fix=fix.copy()),
+            dataclasses.replace(tp, net_fix=fix.copy()))
+
+
+@pytest.mark.parametrize("score_mode", ["delta", "full"])
+@pytest.mark.parametrize("telemetry", [False, True])
+def test_batch_fixed_boxes_match_reference(score_mode, telemetry):
+    # the reference's fixed=True program: every other problem of a group
+    # carries boxes, the rest get EMPTY_BOX rows in the same dispatch
+    from repro.obs.metrics import MetricsRegistry as RReg
+    from repro_torch.obs.metrics import MetricsRegistry as TReg
+    sweeps, chains = 4, 3
+    for sig, items in _groups(sweeps):
+        items = [_with_boxes(rp, tp, i) if i % 2 == 0 else (rp, tp)
+                 for i, (rp, tp) in enumerate(items)]
+        nonces = [17 * (i + 3) for i in range(len(items))]
+        kw = dict(chains=chains, seed=2, sweeps=sweeps, score_mode=score_mode,
+                  nonces=nonces, telemetry=telemetry)
+        rreg, treg = RReg(), TReg()
+        want = r_batch([rp for rp, _ in items], metrics=rreg, **kw)
+        got = t_batch([tp for _, tp in items], device="cpu", metrics=treg,
+                      **kw)
+        for (ws, wc), (gs, gc) in zip(want, got):
+            assert np.array_equal(np.asarray(ws), gs), sig
+            assert np.array_equal(np.asarray(wc), gc), sig
+        assert rreg.to_dict() == treg.to_dict()
+
+
+def test_flat_annealer_refuses_fixed_boxes():
+    rp, tp = _with_boxes(*PROBLEMS[0], 0)
+    with pytest.raises(ValueError, match="anneal_jax_batch"):
+        t_anneal_jax(tp, chains=2, sweeps=1, device="cpu")

@@ -1,14 +1,14 @@
-"""The port's HPWL functions and the plain versions of its placement
-kernels against the JAX package's jnp functions, its Pallas kernels (in
-interpret mode, as the JAX package's own tests run them) and the
-pure-Python oracle.
+"""The port's HPWL functions (plain and with fixed boxes) and the plain
+version of its placement kernel against the JAX package's jnp functions,
+its Pallas kernels (in interpret mode, as the JAX package's own tests run
+them) and the pure-Python oracle.
 
 K2's layout (its pin table and shared-memory formula) is checked against
 the image suite's largest pnr signature.
 
-Tolerance: exact equality.  Coordinates are small integers, so every
-per-net HPWL, total and delta is an integer-valued float32 far below
-2^24 and exact in any summation order.
+Tolerance: exact equality.  Coordinates are small integers and box
+corners integers or half-integers, so every per-net HPWL, total and
+delta is a multiple of 0.5 far below 2^22, exact in any summation order.
 """
 
 import jax.numpy as jnp
@@ -112,9 +112,7 @@ def _problem_batch(seed, p_n=2, chains=3, e=24, n=20, d=5, s=64):
 @pytest.mark.parametrize("seed", range(3))
 def test_net_hpwl_rows_plain(seed):
     prob, slot_xy, pins, mask, *_, slot0 = _problem_batch(seed)
-    before = port.net_hpwl_rows.launches
-    out = port.net_hpwl_rows(prob, slot0, slot_xy, pins, mask)
-    assert port.net_hpwl_rows.launches == before      # CPU: plain version
+    out = port.net_hpwl_rows_plain(prob, slot0, slot_xy, pins, mask)
     for r in range(slot0.shape[0]):
         p = int(prob[r])
         want = ref.net_hpwl(jnp.asarray(slot_xy[p][slot0[r].long()].numpy()),
@@ -127,11 +125,15 @@ def test_net_hpwl_rows_plain(seed):
 def test_anneal_plain_delta_equals_full(seed):
     args = _problem_batch(seed)
     prob, slot_xy, pins, mask, *_, slot0 = args
-    pnc0 = port.net_hpwl_rows(prob, slot0, slot_xy, pins, mask)
+    pnc0 = port.net_hpwl_rows_plain(prob, slot0, slot_xy, pins, mask)
     before = port.anneal_chains.launches
-    outs = {(full, tele): port.anneal_chains(*args, pnc0, full=full,
-                                             telemetry=tele)
-            for full in (False, True) for tele in (False, True)}
+    outs = {}
+    for full in (False, True):
+        for tele in (False, True):
+            got = torch.full_like(pnc0, -1.0)
+            outs[(full, tele)] = port.anneal_chains(
+                *args, full=full, telemetry=tele, pnc0_out=got)
+            assert torch.equal(got, pnc0)       # the prologue's costs
     assert port.anneal_chains.launches == before
     base = outs[(False, False)]
     for (full, tele), o in outs.items():
@@ -185,13 +187,13 @@ def _image_problems():
     return out
 
 
-def _smem_mirror(n, w, e, k, stage):
+def _smem_mirror(n, w, e, k, stage, chain=True):
     # pnr_anneal_smem_bytes in csrc/pnr_anneal.cu, term by term: the pin
     # table (N rows of W int32), slot_xy (E float2), ent_nets (E x K
     # int32), then the chain's slot_of and occupant (E int32 each) and its
     # per-net costs (N float32)
     tables = n * w * 4 + e * 8 + e * k * 4 if stage else 0
-    return tables + e * 4 + e * 4 + n * 4
+    return tables + (e * 4 + e * 4 + n * 4 if chain else 0)
 
 
 def test_anneal_layout_fits_image_suite_largest_signature():
@@ -203,8 +205,8 @@ def test_anneal_layout_fits_image_suite_largest_signature():
     assert max(sigs.values()) == sigs["camera"] == (16384, 512, 32, 512, 4)
     for sig in sigs.values():
         _, n, d, e, k = sig
-        w, stage, smem = port.anneal_layout(n, d, e, k)
-        assert stage and w == max(8, (d + 4) // 4 * 4)
+        w, stage, chain, smem = port.anneal_layout(n, d, e, k)
+        assert stage and chain and w == max(8, (d + 4) // 4 * 4)
         assert smem == _smem_mirror(n, w, e, k, stage)
         assert smem <= port.SMEM_LIMIT == 227 * 1024
 
@@ -212,13 +214,179 @@ def test_anneal_layout_fits_image_suite_largest_signature():
 def test_anneal_layout_shrinks_then_refuses():
     # tables and chain exactly at 227 KB: staged; one net more: the chain
     # reads the tables from global memory
-    w, stage, smem = port.anneal_layout(6400, 4, 64, 4)
-    assert stage and smem == port.SMEM_LIMIT
+    w, stage, chain, smem = port.anneal_layout(6400, 4, 64, 4)
+    assert stage and chain and smem == port.SMEM_LIMIT
     assert smem == _smem_mirror(6400, w, 64, 4, stage)
-    w, stage, smem = port.anneal_layout(6401, 4, 64, 4)
-    assert not stage and smem == _smem_mirror(6401, w, 64, 4, stage)
-    w, stage, smem = port.anneal_layout(4096, 32, 2048, 8)
-    assert not stage and smem == _smem_mirror(4096, w, 2048, 8, stage)
-    # one chain's state alone above 227 KB: a clear error
-    with pytest.raises(ValueError, match="227 KB"):
-        port.anneal_layout(20000, 4, 20000, 4)
+    w, stage, chain, smem = port.anneal_layout(6401, 4, 64, 4)
+    assert not stage and chain
+    assert smem == _smem_mirror(6401, w, 64, 4, stage)
+    w, stage, chain, smem = port.anneal_layout(4096, 32, 2048, 8)
+    assert not stage and chain
+    assert smem == _smem_mirror(4096, w, 2048, 8, stage)
+    # one chain's state alone above 227 KB goes to the global scratch and
+    # the block asks for no shared memory (the grouped path's flat 128x128
+    # bucket; the 256x256 deblock)
+    for n, e in ((20000, 20000), (16384, 32768), (32768, 16384)):
+        assert _smem_mirror(n, 8, e, 4, False) > port.SMEM_LIMIT
+        w, stage, chain, smem = port.anneal_layout(n, 4, e, 4)
+        assert (stage, chain, smem) == (False, False, 0)
+        assert smem == _smem_mirror(n, w, e, 4, stage, chain)
+    # the largest chain that fits keeps its state in shared memory
+    w, stage, chain, smem = port.anneal_layout(port.SMEM_LIMIT // 4 - 2,
+                                               4, 1, 4)
+    assert chain and not stage and smem == port.SMEM_LIMIT
+
+
+# ---------------------------------------------------------------------------
+# fixed boxes (the hierarchical placer's sub-problems)
+# ---------------------------------------------------------------------------
+def _boxes(rng, n, half=True):
+    """(N, 4) boxes: integer or half-integer corners (cluster centres are
+    origin + (rw - 1) / 2), some EMPTY_BOX."""
+    step = 2.0 if half else 1.0
+    lo = rng.integers(-8, 12, size=(n, 2)) / step
+    ext = rng.integers(0, 10, size=(n, 2)) / step
+    fix = np.stack([lo[:, 0], lo[:, 0] + ext[:, 0],
+                    lo[:, 1], lo[:, 1] + ext[:, 1]], -1).astype(np.float32)
+    fix[rng.random(n) < 0.3] = np.asarray(ref.EMPTY_BOX, np.float32)
+    return fix
+
+
+@pytest.mark.parametrize("points", [
+    [], [(3, 4)], [(1, 2), (5, -1), (0, 0)], [(2.5, 3.5), (-1.5, 7.0)]])
+def test_fixed_box_matches_reference(points):
+    got = port.fixed_box(points)
+    want = ref.fixed_box(points)
+    assert got.dtype == want.dtype == np.float32
+    assert np.array_equal(got, want)
+    assert port.EMPTY_BOX == ref.EMPTY_BOX
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_hpwl_fixed_matches_reference(seed):
+    rng = np.random.default_rng(200 + seed)
+    pos, pins, mask = _netlist(seed)
+    fix = _boxes(rng, pins.shape[0], half=seed % 2 == 0)
+    # a pinless net with a box scores the box; with EMPTY_BOX it scores 0
+    pinless = ~mask.any(axis=1)
+    assert pinless.any()
+    want = np.asarray(ref.net_hpwl_fixed(jnp.asarray(pos), jnp.asarray(pins),
+                                         jnp.asarray(mask), jnp.asarray(fix)))
+    got = port.net_hpwl_fixed(_t(pos), _t(pins), _t(mask), _t(fix)).numpy()
+    assert np.array_equal(want, got)
+    assert float(port.hpwl_fixed(_t(pos), _t(pins), _t(mask), _t(fix))) \
+        == float(ref.hpwl_fixed(pos, pins, mask, fix))
+    boxed = fix[:, 0] <= fix[:, 1]
+    assert np.array_equal(got[pinless & boxed],
+                          (fix[:, 1] - fix[:, 0] + fix[:, 3]
+                           - fix[:, 2])[pinless & boxed])
+    assert (got[pinless & ~boxed] == 0).all()
+    if seed % 2 == 0:                         # half-integer costs occur
+        assert (got % 1 == 0.5).any()
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_empty_box_is_a_bit_exact_noop(seed):
+    pos, pins, mask = _netlist(seed)
+    empty = np.tile(np.asarray(port.EMPTY_BOX, np.float32),
+                    (pins.shape[0], 1))
+    got = port.net_hpwl_fixed(_t(pos), _t(pins), _t(mask), _t(empty))
+    assert torch.equal(got, port.net_hpwl(_t(pos), _t(pins), _t(mask)))
+    assert np.array_equal(got.numpy(), np.asarray(ref.net_hpwl_fixed(
+        jnp.asarray(pos), jnp.asarray(pins), jnp.asarray(mask),
+        jnp.asarray(empty))))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_hpwl_delta_fixed_matches_reference(seed):
+    rng = np.random.default_rng(300 + seed)
+    pos, pins, mask = _netlist(seed)
+    e, n = pos.shape[0], pins.shape[0]
+    fix = _boxes(rng, n)
+    fix[n - 1] = (0.5, 9.5, -2.0, 3.0)    # the pads' clamped gather target
+    slot_of = rng.permutation(e).astype(np.int32)
+    pnc = np.asarray(ref.net_hpwl_fixed(
+        jnp.asarray(pos[slot_of]), jnp.asarray(pins), jnp.asarray(mask),
+        jnp.asarray(fix)))
+    a, b = (int(v) for v in rng.choice(e, 2, replace=False))
+    cand = slot_of.copy()
+    cand[a], cand[b] = slot_of[b], slot_of[a]
+    touched = sorted({i for i in range(n)
+                      if ((pins[i] == a) | (pins[i] == b))[mask[i]].any()})
+    # pads (n) and a duplicate entry (also n): both must score 0
+    tn = np.asarray(touched + [n] * (8 - len(touched) % 8), np.int32)
+    r_new, r_delta = ref.hpwl_delta_fixed(
+        jnp.asarray(pos), jnp.asarray(cand), jnp.asarray(pins),
+        jnp.asarray(mask), jnp.asarray(pnc), jnp.asarray(tn),
+        jnp.asarray(fix))
+    p_new, p_delta = port.hpwl_delta_fixed(_t(pos), _t(cand), _t(pins),
+                                           _t(mask), _t(pnc), _t(tn), _t(fix))
+    assert np.array_equal(np.asarray(r_new), p_new.numpy())
+    assert float(r_delta) == float(p_delta)
+    assert (p_new.numpy()[len(touched):] == 0).all()
+    full_new = float(port.hpwl_fixed(_t(pos[cand]), _t(pins), _t(mask),
+                                     _t(fix)))
+    assert full_new == float(pnc.sum()) + float(p_delta)
+
+
+def _boxed_batch(seed):
+    args = _problem_batch(seed)
+    rng = np.random.default_rng(400 + seed)
+    p_n, n = args[2].shape[:2]
+    mask = args[3].clone()
+    mask[:, :3] = False                   # nets scored by their box alone
+    args[3] = mask
+    return args + [_t(np.stack([_boxes(rng, n) for _ in range(p_n)]))]
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_net_hpwl_rows_plain_fixed(seed):
+    prob, slot_xy, pins, mask, *_, slot0, fix = _boxed_batch(seed)
+    out = port.net_hpwl_rows_plain(prob, slot0, slot_xy, pins, mask, fix)
+    for r in range(slot0.shape[0]):
+        p = int(prob[r])
+        want = ref.net_hpwl_fixed(
+            jnp.asarray(slot_xy[p][slot0[r].long()].numpy()),
+            jnp.asarray(pins[p].numpy()), jnp.asarray(mask[p].numpy()),
+            jnp.asarray(fix[p].numpy()))
+        assert np.array_equal(np.asarray(want), out[r].numpy())
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_anneal_plain_fixed_delta_equals_full(seed):
+    args = _boxed_batch(seed)
+    prob, slot_xy, pins, mask, *_, slot0, fix = args
+    pnc0 = port.net_hpwl_rows_plain(prob, slot0, slot_xy, pins, mask, fix)
+    outs = {}
+    for full in (False, True):
+        got = torch.empty_like(pnc0)
+        outs[full] = port.anneal_chains(*args, full=full, telemetry=True,
+                                        pnc0_out=got)
+        assert torch.equal(got, pnc0)
+    for x, y in zip(outs[False], outs[True]):
+        assert torch.equal(x, y)
+    best_slot, best = outs[False][:2]
+    for r in range(best_slot.shape[0]):
+        p = int(prob[r])
+        assert float(port.hpwl_fixed(slot_xy[p][best_slot[r].long()],
+                                     pins[p], mask[p], fix[p])) \
+            == float(best[r])
+    # EMPTY_BOX everywhere: the box-free program, bit for bit
+    empty = torch.tensor(port.EMPTY_BOX).expand_as(fix).contiguous()
+    plain = port.anneal_chains(*args[:-1], telemetry=True)
+    boxed = port.anneal_chains(*args[:-1], empty, telemetry=True)
+    for x, y in zip(plain, boxed):
+        assert torch.equal(x, y)
+
+
+def test_anneal_layout_counts_the_boxes():
+    n, d, e, k = 512, 32, 512, 4
+    w, stage, chain, smem = port.anneal_layout(n, d, e, k, True)
+    assert stage and chain
+    assert smem == _smem_mirror(n, w, e, k, stage) + 16 * n
+    # boxes push a problem that stages without them to global tables
+    w, stage, _, _ = port.anneal_layout(6400, 4, 64, 4)
+    assert stage
+    w, stage, chain, smem = port.anneal_layout(6400, 4, 64, 4, True)
+    assert not stage and chain
+    assert smem == _smem_mirror(6400, w, 64, 4, stage)

@@ -8,10 +8,15 @@ parent commit unpacked with ``git archive`` into a gitignored directory
 such as ``build/``.  Both forms get the same inputs: the image suite mined
 and mapped with ``chip_smoke.py``'s settings (16 chains, 32 sweeps on a
 16x16 fabric) and one launch per bucket signature, as the Explorer's pnr
-stage launches K2.  Each round times other, this, this, other with CUDA
-events, one call per signature; the script prints each round's sum over
-the signatures and the largest signature's time per form, then their
-means, and fails unless the two forms return the same bits.  Needs one
+stage launches K2.  A checkout whose K2 still takes the starting per-net
+costs as an input (``pnc0``, before K2's prologue scored them) runs them
+through its own K1 (``net_hpwl_rows``) first, inside the timed call, as
+its pnr stage did.  Each round times other, this, this, other with CUDA
+events, one call per signature, first with every step, then with zero
+steps (the prologue alone: staging the tables and the starting costs,
+read or scored); the script prints each round's sum over the signatures
+and the largest signature's time per form, then their means, and fails
+unless the two forms return the same bits.  Needs one
 card; imports only the other checkout's ``repro_torch/kernels`` modules.
 """
 
@@ -95,14 +100,21 @@ def main() -> int:
             sweeps=options.sweeps,
             nonces=[zlib.crc32(f"{pe}:{app}".encode())
                     for (pe, app), _ in items]).items()}
-        pnc0 = pnr_cost.net_hpwl_rows(d["prob"], d["slot0"], d["slot_xy"],
-                                      d["net_pins"], d["net_mask"])
-        cases.append((sig, [d[k] for k in KERNEL_INPUTS] + [pnc0]))
+        cases.append((sig, [d[k] for k in KERNEL_INPUTS]))
     largest = max(range(len(cases)), key=lambda i: cases[i][0][0])
     print(f"{len(cases)} signatures; largest "
           f"{'x'.join(map(str, cases[largest][0]))}", flush=True)
 
-    forms = {"this": pnr_cost.anneal_chains, "other": other.anneal_chains}
+    def other_k1_k2(*a, **kw):
+        # K1 (its starting costs), then K2, as the other pnr stage ran them
+        pnc0 = other.net_hpwl_rows(a[0], a[10], a[1], a[2], a[3])
+        return other.anneal_chains(*a, pnc0, **kw)
+
+    k1 = hasattr(other, "net_hpwl_rows")
+    print(f"other: {'K1 + K2 (K2 takes pnc0)' if k1 else 'K2 alone'}; "
+          f"this: K2 alone (starting costs in its prologue)", flush=True)
+    forms = {"this": pnr_cost.anneal_chains,
+             "other": other_k1_k2 if k1 else other.anneal_chains}
     for sig, a in cases:
         got = {n: f(*a, telemetry=True) for n, f in forms.items()}
         torch.cuda.synchronize()
@@ -112,7 +124,13 @@ def main() -> int:
                   file=sys.stderr)
             return 1
 
-    def one_pass(fn):
+    # the same inputs with zero steps: every per-step stream cut to width 0
+    streams = {KERNEL_INPUTS.index(k) for k in ("temps", "active", "a", "t",
+                                                 "log_u")}
+    zero_cases = [(sig, [x[:, :0].contiguous() if i in streams else x
+                         for i, x in enumerate(a)]) for sig, a in cases]
+
+    def one_pass(fn, cases):
         ms = []
         for _, a in cases:
             start = torch.cuda.Event(enable_timing=True)
@@ -125,14 +143,17 @@ def main() -> int:
             ms.append(start.elapsed_time(stop))
         return sum(ms), ms[largest]
 
-    times = {"this": [], "other": []}
+    times = {"this": [], "other": [], "this zero steps": [],
+             "other zero steps": []}
     for rnd in range(args.rounds):
-        row = []
-        for name in ("other", "this", "this", "other"):
-            total, big = one_pass(forms[name])
-            times[name].append((total, big))
-            row.append(f"{name} {total:.4f}/{big:.4f}")
-        print(f"round {rnd}: sum/largest ms: " + ", ".join(row), flush=True)
+        for suffix, cs in (("", cases), (" zero steps", zero_cases)):
+            row = []
+            for name in ("other", "this", "this", "other"):
+                total, big = one_pass(forms[name], cs)
+                times[name + suffix].append((total, big))
+                row.append(f"{name} {total:.4f}/{big:.4f}")
+            print(f"round {rnd}{suffix}: sum/largest ms: " + ", ".join(row),
+                  flush=True)
     out = {}
     for name, ts in times.items():
         sums = [t[0] for t in ts]
