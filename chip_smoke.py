@@ -94,13 +94,37 @@ version:
    bucket signature), whose chain state exceeds shared memory and lives
    in global memory: timed, and held to the plain version on its first
    ``HIER_CHECK_STEPS`` steps;
-9. print one JSON line ``{"kernels": [...]}`` with launches, max |diff|,
+9. serving, the second entry point into K2 and K3, and the rest of
+   observability: ``analyze_pnr`` of the largest scheduled pair from
+   phase 4's card ``PnRResult`` equals the report from the CPU rerun's;
+   ``buildprof`` records exactly one compile event and one
+   ``kernel-compile`` span for one ``nvcc`` run (mamba_scan.cu into a
+   fresh build directory), and (around phase 6) one Triton
+   specialisation for each distinct (pattern, dtype) K4 launched; then
+   the four overlapping clients of the JAX package's serve smoke (r1
+   {camera}, r2 {camera, harris}, r3 {harris, gaussian}, r4 {camera,
+   laplacian}) at phase 3's configuration, each solo on the card and
+   then all at once through ``repro_torch.serve.ExploreService``, every
+   run from a copy of phase 3's mined and mapped front (nothing mined):
+   with the launch counters set to 0 just before the served batch and
+   read just after, under ``torch.profiler``, every response ``ok``, not
+   cached, byte-identical to its solo run and record for record equal
+   to phase 4's card records, its failure rows only phase 4's schedule
+   rows for its apps, no degraded batch, K2 and K3 launched (as many
+   times as the trace shows) and fewer launches and dispatches than the
+   solo runs summed; a repeat of r2 under a new id answered from cache
+   without a launch in under 1000 ms; r2 and a malformed line over TCP;
+   it prints the served wall, the solo walls summed, the launches, the
+   cache hit's milliseconds and the device's busy share of the served
+   wall, beside the card's name and power limit;
+10. print one JSON line ``{"kernels": [...]}`` with launches, max |diff|,
    times and bounds of K1-K7 (K1's row: its launches counted in the
    main path's trace, its ``ms`` K2 with zero steps, the kernel alone,
    against the bound of that launch's bytes, its ``timed`` key says so;
    K3's ``ms`` its launch alone, its
    ``wrapper_ms`` with the wrapper's host work, as the main path pays
-   it), then ``{"ok": true, "device": {...}}`` as the last line.
+   it; K2's and K3's ``serve_launches`` their launches in the served
+   batch), then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure exits nonzero; no phase catches an error and carries on
 (phase 6 counts the configurations the port refuses with the reference's
@@ -219,20 +243,28 @@ def same_bits(a, b) -> bool:
 
 
 def device_kernels(run):
-    """``run()`` under ``torch.profiler`` (CUDA activity): its result and
-    the device kernels it launched, ``{name: [milliseconds of each
-    launch]}`` (copies and memsets included under their own names)."""
+    """``run()`` under ``torch.profiler`` (CUDA activity): its result, the
+    device kernels it launched, ``{name: [milliseconds of each launch]}``
+    (copies and memsets included under their own names), and the
+    milliseconds in which the device ran at least one of them (the union
+    of their intervals: its busy time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = run()
         torch.cuda.synchronize()
-    kern = {}
+    kern, spans = {}, []
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            kern.setdefault(ev.name, []).append(
-                ev.time_range.elapsed_us() / 1e3)
-    return out, kern
+            tr = ev.time_range
+            kern.setdefault(ev.name, []).append(tr.elapsed_us() / 1e3)
+            spans.append((tr.start, tr.end))
+    busy_us, end = 0.0, float("-inf")
+    for t0, t1 in sorted(spans):
+        if t1 > end:
+            busy_us += t1 - max(t0, end)
+            end = t1
+    return out, kern, busy_us / 1e3
 
 
 def launches_of(kern: dict, name: str) -> int:
@@ -729,6 +761,219 @@ def hier_phase(dev) -> dict:
             "per_level": per_level}
 
 
+#: phase 9: the four overlapping clients of the JAX package's serve smoke
+#: (src/repro/serve/__main__.py), over the image suite's apps
+SERVE_CLIENTS = (("r1", ("camera",)), ("r2", ("camera", "harris")),
+                 ("r3", ("harris", "gaussian")),
+                 ("r4", ("camera", "laplacian")))
+
+
+def analyze_check(card_pnrs: dict, cpu_pnrs: dict, skip: set) -> None:
+    """``analyze_pnr`` of the largest scheduled pair: the report from the
+    card's ``PnRResult`` equals the report from the CPU rerun's."""
+    from repro_torch.obs import analyze_pnr
+    from repro_torch.sim import modulo_schedule
+    pair = max((p for p in card_pnrs if p not in skip),
+               key=lambda p: (len(card_pnrs[p].netlist.pe_cells), p))
+    reports = []
+    for pnr in (card_pnrs[pair], cpu_pnrs[pair]):
+        sched = modulo_schedule(pnr.netlist, pnr.placement, pnr.routes,
+                                pnr.spec)
+        rep = analyze_pnr(pnr, sched)
+        reports.append((rep.to_dict(), rep.render()))
+    if reports[0] != reports[1]:
+        fail(f"analyze_pnr of {pair} differs between the card's and the "
+             f"cpu's PnRResult")
+    d = reports[0][0]
+    print(f"analyze_pnr {pair[0]}/{pair[1]} (card == cpu): pe_util "
+          f"{d['pe_util']}, channels {d['used_edges']}/{d['total_edges']}, "
+          f"II {d['ii']} (min {d['min_ii']}), skew-critical nets "
+          f"{len(d['skew_critical'])}", flush=True)
+
+
+def buildprof_nvcc_check() -> None:
+    """``buildprof`` on one ``nvcc`` run: mamba_scan.cu (the smallest
+    source) built into a fresh build directory with a tracer on records
+    one compile event and one span on the ``kernel-compile`` track."""
+    import tempfile
+    from repro_torch.kernels import build
+    from repro_torch.obs import buildprof, disable_tracing, enable_tracing
+    from repro_torch.obs.metrics import MetricsRegistry
+    reg = MetricsRegistry()
+    old = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["REPRO_TORCH_BUILD_DIR"] = tmp
+        buildprof.enable(registry=reg)
+        tracer = enable_tracing()
+        try:
+            lib, _ = build.build("mamba_scan.cu")
+            built = lib.exists()
+        finally:
+            disable_tracing()
+            buildprof.disable()
+            if old is None:
+                del os.environ["REPRO_TORCH_BUILD_DIR"]
+            else:
+                os.environ["REPRO_TORCH_BUILD_DIR"] = old
+    spans = [r for r in tracer.to_rows() if r.get("track") == "kernel-compile"]
+    secs = reg.histogram("kernels.compile.secs")
+    print(f"buildprof: nvcc on mamba_scan.cu {secs.total:.2f} s; counters "
+          f"{reg.counters('kernels.compile')}; kernel-compile spans "
+          f"{[(r['name'], round(r['dur_s'], 3)) for r in spans]}",
+          flush=True)
+    if not built or reg.counter("kernels.compile.events") != 1 \
+            or reg.counter("kernels.compile.mamba_scan") != 1 \
+            or [r["name"] for r in spans] != ["mamba_scan"]:
+        fail("buildprof did not record exactly one nvcc compile")
+
+
+def serve_phase(apps, cfg, front, card_rows, card_fails, card) -> dict:
+    """Phase 9: the four overlapping clients of :data:`SERVE_CLIENTS`
+    served at once by ``repro_torch.serve.ExploreService`` on the card,
+    each held byte for byte to a solo ``Explorer`` run on the card and
+    record for record to phase 4's card records; every run starts from a
+    copy of phase 3's ``front``, so what is served is pnr, schedule and
+    simulate (K2 and K3).  Then a cache hit and a TCP round trip."""
+    import asyncio
+    from repro_torch.explore import Explorer
+    from repro_torch.kernels import pnr_cost, sim_step
+    from repro_torch.serve import ExploreService, encode_request
+
+    cfg = cfg.replace(on_error="isolate")       # what the service runs under
+    want_row = {(r["pe_name"], r["app"]): r for r in card_rows}
+
+    def counts():
+        return (pnr_cost.anneal_chains.launches,
+                sim_step.simulate_batch_stepper.launches)
+
+    def fails_of(failures, names):
+        return sorted((f["stage"], f["pe_name"], f["app"], f["error_type"])
+                      for f in failures if f["app"] in names)
+
+    # solo: one Explorer a client, on the card
+    solo, solo_wall, solo_disp, solo_k = {}, 0.0, 0, (0, 0)
+    for rid, names in SERVE_CLIENTS:
+        ex = Explorer({n: apps[n] for n in names}, cfg, store=dict(front),
+                      device="cuda")
+        k0 = counts()
+        t0 = time.perf_counter()
+        res = ex.run()
+        solo_wall += time.perf_counter() - t0
+        solo_k = tuple(s + b - a for s, a, b in zip(solo_k, k0, counts()))
+        solo_disp += ex.stats["pnr_dispatch"] + ex.stats["sim_dispatch"]
+        if ex.stats["mine"] or ex.stats["map"]:
+            fail(f"solo {rid} re-mined: it must start from phase 3's front")
+        solo[rid] = [json.dumps(r.to_dict()) for r in res.records()]
+        if fails_of([f.to_dict() for f in res.failures], names) \
+                != fails_of(card_fails, names):
+            fail(f"solo {rid}'s failure rows differ from phase 4's")
+
+    svc = ExploreService(store=dict(front), max_batch_apps=4,
+                         max_wait_ms=100, queue_limit=16)
+    loop = asyncio.new_event_loop()
+    try:
+        loop.run_until_complete(svc.start())
+
+        async def clients():
+            return await asyncio.gather(*[
+                svc.explore(rid, {n: apps[n] for n in names}, cfg)
+                for rid, names in SERVE_CLIENTS])
+
+        def served():
+            t0 = time.perf_counter()
+            out = loop.run_until_complete(clients())
+            return out, time.perf_counter() - t0
+
+        # the served batch, traced: K2 and K3 run in the batcher's worker
+        # thread, which CUPTI sees as it sees any other
+        pnr_cost.anneal_chains.launches = 0
+        sim_step.simulate_batch_stepper.launches = 0
+        (resps, wall), kern, busy_ms = device_kernels(served)
+        served_k = counts()
+        stats = svc.metrics.view()
+        for (rid, names), resp in zip(SERVE_CLIENTS, resps):
+            if not resp.ok or resp.cached:
+                fail(f"served {rid}: ok={resp.ok} cached={resp.cached} "
+                     f"{resp.error}")
+            if resp.record_lines() != solo[rid]:
+                fail(f"served {rid}'s records differ from its solo run's")
+            for r in resp.records:
+                if r != want_row.get((r["pe_name"], r["app"])):
+                    fail(f"served record {r['pe_name']}/{r['app']} differs "
+                         f"from phase 4's card record")
+            if fails_of(resp.failures, names) != fails_of(card_fails, names) \
+                    or any(f["stage"] != "schedule" for f in resp.failures):
+                fail(f"served {rid}'s failure rows {resp.failures} are not "
+                     f"phase 4's schedule rows for {names}")
+        served_disp = stats["pnr_dispatch"] + stats["sim_dispatch"]
+        if stats["serve.batch_degraded"] or stats["serve.request_errors"] \
+                or stats["mine"] or stats["map"]:
+            fail(f"the served batch degraded, failed or re-mined: "
+                 f"{dict(stats)}")
+        if min(served_k) == 0 or sum(served_k) >= sum(solo_k) \
+                or any(a > b for a, b in zip(served_k, solo_k)):
+            fail(f"served launches (K2, K3) {served_k} against solo "
+                 f"{solo_k}: not amortized")
+        if (launches_of(kern, "anneal_kernel"),
+                launches_of(kern, "sim_stepper_kernel")) != served_k:
+            fail(f"the served batch's trace disagrees with the launch "
+                 f"counters {served_k}")
+        if served_disp >= solo_disp:
+            fail(f"served {served_disp} dispatches against {solo_disp} solo")
+
+        # a cache hit: the same content under a new id launches nothing
+        rid2, names2 = SERVE_CLIENTS[1]
+        apps2 = {n: apps[n] for n in names2}
+        k0 = counts()
+        hit = loop.run_until_complete(svc.explore("r2-again", apps2, cfg))
+        if not (hit.ok and hit.cached) or hit.record_lines() != solo[rid2] \
+                or counts() != k0 or hit.elapsed_ms >= 1000:
+            fail(f"the cache hit: ok={hit.ok} cached={hit.cached}, "
+                 f"launches {k0} -> {counts()}, {hit.elapsed_ms:.1f} ms")
+
+        # the wire: r2 and one malformed line over TCP
+        async def wire():
+            server = await svc.serve_tcp("127.0.0.1", 0)
+            port = server.sockets[0].getsockname()[1]
+            reader, writer = await asyncio.open_connection("127.0.0.1", port)
+            try:
+                writer.write((json.dumps(encode_request(
+                    "wire-1", apps2, cfg)) + "\n").encode())
+                writer.write(b'{"this is": "not a request"}\n')
+                await writer.drain()
+                writer.write_eof()
+                return [json.loads(await reader.readline())
+                        for _ in range(2)]
+            finally:
+                writer.close()
+                await writer.wait_closed()
+                server.close()
+                await server.wait_closed()
+
+        by_ok = {d["ok"]: d for d in loop.run_until_complete(wire())}
+        if set(by_ok) != {True, False} or by_ok[True]["id"] != "wire-1" \
+                or [json.dumps(r) for r in by_ok[True]["records"]] \
+                != solo[rid2]:
+            fail(f"the TCP round trip: {sorted(by_ok)}")
+        loop.run_until_complete(svc.aclose())
+    finally:
+        loop.run_until_complete(loop.shutdown_default_executor())
+        loop.close()
+    print(card)
+    print(f"served {len(SERVE_CLIENTS)} clients in "
+          f"{stats['serve.batches']} batch(es): {wall:.3f} s wall (traced), "
+          f"solo runs summed {solo_wall:.3f} s; K2, K3 launches served "
+          f"{served_k[0]}, {served_k[1]} against solo {solo_k[0]}, "
+          f"{solo_k[1]}; dispatches served {served_disp} against solo "
+          f"{solo_disp}; device busy {busy_ms:.2f} ms of the served wall "
+          f"({100 * busy_ms / (wall * 1e3):.2f}%); every response == solo "
+          f"== phase 4's card records, failure rows "
+          f"{fails_of(card_fails, apps)}; cache hit {hit.elapsed_ms:.3f} ms "
+          f"with no launch; TCP round trip == solo, malformed line "
+          f"answered ok: false", flush=True)
+    return {"served_k": served_k, "solo_k": solo_k}
+
+
 def main() -> int:
     import torch
 
@@ -753,7 +998,8 @@ def main() -> int:
         from repro_torch.kernels.flash_attention import _lib as attention_lib
         from repro_torch.kernels.mamba_scan import _lib as scan_lib
         from repro_torch.kernels.ref import ref_gemm_pe, ref_pe
-        from repro_torch.obs import disable_tracing, enable_tracing
+        from repro_torch.obs import buildprof, disable_tracing, enable_tracing
+        from repro_torch.obs.metrics import MetricsRegistry
         from repro_torch.sim import random_inputs, sim_signature
         from repro_torch.sim.cycle import bucket_tensors
     except ImportError as e:
@@ -930,7 +1176,7 @@ def main() -> int:
     # counted there, as every launch of a kernel whose name holds "hpwl"
     pnr_cost.anneal_chains.launches = 0
     sim_step.simulate_batch_stepper.launches = 0
-    (res, gpu_wall, gpu_stages), kern = device_kernels(
+    (res, gpu_wall, gpu_stages), kern, busy_ms = device_kernels(
         lambda: traced_run(ex))
     launches = {"k1": sum(len(v) for k, v in kern.items() if "hpwl" in k),
                 "k2": pnr_cost.anneal_chains.launches,
@@ -945,7 +1191,9 @@ def main() -> int:
           f"{ex.stats['sim_dispatch']} sim dispatches, launches {launches}; "
           f"the trace holds {sum(len(v) for v in kern.values())} device "
           f"activities of {len(kern)} names, of this repository's kernels "
-          f"{ {k: v for k, v in ours.items() if v} }", flush=True)
+          f"{ {k: v for k, v in ours.items() if v} }; the device busy "
+          f"{busy_ms:.2f} ms ({100 * busy_ms / (gpu_wall * 1e3):.2f}% of "
+          f"the wall)", flush=True)
     if ours["anneal_kernel"] != launches["k2"] \
             or ours["sim_stepper_kernel"] != launches["k3"]:
         fail(f"the profiler's trace ({ours}) disagrees with the launch "
@@ -972,6 +1220,7 @@ def main() -> int:
                for r in sims):
         fail("a simulated pair is not golden-verified against the "
              "interpreter")
+    card_pnrs = ex.pnr()                # memo hits: the card's placements
     ex_cpu = Explorer(apps, cfg, store=ex._store, device="cpu")
     ex_cpu.forget("pnr", "sched", "sim")
     res_cpu, cpu_wall, cpu_stages = traced_run(ex_cpu)
@@ -993,6 +1242,7 @@ def main() -> int:
           f"{len(buckets)} sim buckets), failure rows {fails} identical on "
           f"cuda and cpu")
     print(res.table())
+    cpu_pnrs = ex_cpu.pnr()
 
     # -- 5: kernel times and bounds at the largest signature ---------------
     phase("5 kernel timing")
@@ -1016,7 +1266,7 @@ def main() -> int:
     # the kernel alone (its device time in the profiler's trace) and with
     # its wrapper (the pin table and the outputs; CUDA events)
     reps = 20
-    _, kern0 = device_kernels(lambda: [
+    _, kern0, _ = device_kernels(lambda: [
         pnr_cost.anneal_chains(*args0, pnc0_out=pro) for _ in range(reps)])
     k1_times = [t for k, v in kern0.items() if "anneal_kernel" in k
                 for t in v]
@@ -1158,6 +1408,10 @@ def main() -> int:
         same = (got == want) | (torch.isnan(got) & torch.isnan(want))
         return float(torch.where(same, 0.0, (got - want).abs()).max())
 
+    # every Triton JIT specialisation of K4 in this phase, recorded by
+    # buildprof: one for each distinct (pattern, dtype) launched
+    k4_builds = MetricsRegistry()
+    buildprof.enable(registry=k4_builds)
     pe_fused.pe_apply.launches = 0
     gemm.gemm_pe.launches = 0
     applied, refused, k4_err = 0, [], 0.0
@@ -1306,6 +1560,21 @@ def main() -> int:
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; "
               f"{k4_bytes} bytes", flush=True)
 
+    buildprof.disable()
+    # float32 at (4096, 8192) and (64, 128), both with n % 16 == 0 (one
+    # specialisation), and bfloat16, for every distinct Triton rendering
+    renderings = {pe_fused.triton_source(pe_fused.lower_pattern(pat))
+                  for _, pat in distinct.values()}
+    k4_jit = k4_builds.counter("kernels.compile.triton")
+    print(f"buildprof: {k4_jit} Triton specialisations of K4 in "
+          f"{k4_builds.histogram('kernels.compile.secs').total:.2f} s for "
+          f"{len(renderings)} distinct renderings ({len(distinct)} "
+          f"patterns) x (float32, bfloat16)", flush=True)
+    if k4_jit != 2 * len(renderings) \
+            or k4_builds.counter("kernels.compile.events") != k4_jit:
+        fail(f"buildprof counted {k4_builds.counters('kernels.compile')} "
+             f"for {len(renderings)} distinct renderings in two dtypes")
+
     k5_ms = {}
     for case in ("a", "b", "c"):
         extras, kw = k5_cases[case]
@@ -1330,8 +1599,17 @@ def main() -> int:
     # -- 8: hierarchical placement at mega-fabric size -------------------
     p8 = hier_phase(dev)
 
-    # -- 9: the kernels line ----------------------------------------------
-    phase("9 the kernels line")
+    # -- 9: serving on the card, and the rest of observability -----------
+    phase("9 serving on the card: four overlapping clients through "
+          "repro_torch.serve; analyze_pnr and buildprof")
+    skip = {(f.pe_name, f.app) for f in res.failures}
+    analyze_check(card_pnrs, cpu_pnrs, skip)
+    buildprof_nvcc_check()
+    p9 = serve_phase(apps, cfg, front, rows,
+                     [f.to_dict() for f in res.failures], card)
+
+    # -- 10: the kernels line ---------------------------------------------
+    phase("10 the kernels line")
     def bound(b, ops, peak=FP32_OPS_PER_S):
         t_b, t_o = b / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
@@ -1365,6 +1643,10 @@ def main() -> int:
     # K3's ms is its launch alone; with the wrapper's host work (checks,
     # event lists, buffers), as the main path pays it:
     kernels[2]["wrapper_ms"] = k3_wrap
+    # K2's and K3's launches on the second path into them: the served
+    # batch of phase 9
+    kernels[1]["serve_launches"], kernels[2]["serve_launches"] = \
+        p9["served_k"]
     _, _, prog, ms, plain_ms, lib_ms, b, ops = k4_rows[0]
     b_ms, by = bound(b, ops)
     kernels.append({"name": "pe_kernel (K4)", "route": "triton",

@@ -146,13 +146,14 @@ def _add_common(sp: argparse.ArgumentParser) -> None:
                     help="write the metrics registry as JSON")
 
 
-def _obs_begin(trace, metrics_path):
-    """Enable tracing/telemetry for one CLI run."""
+def _obs_begin(trace, metrics_path, ex):
+    """Enable tracing/telemetry/kernel-build profiling for one CLI run."""
     if not (trace or metrics_path):
         return None
     from .. import obs
     obs.enable_tracing()
     obs.enable_telemetry()
+    obs.buildprof.enable(registry=ex.metrics)
     return (trace, metrics_path)
 
 
@@ -163,6 +164,7 @@ def _obs_end(handle, ex):
     from .. import obs
     tracer = obs.disable_tracing()
     obs.enable_telemetry(False)
+    obs.buildprof.disable()
     if trace and tracer is not None:
         tracer.write_chrome(trace)
         print(f"trace -> {trace} "
@@ -191,7 +193,7 @@ def _run(args, mode: str) -> int:
     ex = Explorer(apps, cfg, store=store, metrics=metrics,
                   device=args.device)
     obs_handle = _obs_begin(getattr(args, "trace", None),
-                            getattr(args, "metrics", None))
+                            getattr(args, "metrics", None), ex)
     try:
         for spec in args.inject_fault or ():
             faultinject.arm(spec)
@@ -258,7 +260,7 @@ def smoke(trace=None, metrics_path=None, device="cuda") -> int:
 
     apps, cfg = _smoke_case()
     ex = Explorer(apps, cfg, device=device)
-    obs_handle = _obs_begin(trace, metrics_path)
+    obs_handle = _obs_begin(trace, metrics_path, ex)
     try:
         res = ex.run()
     finally:

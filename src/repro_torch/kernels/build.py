@@ -20,8 +20,11 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Tuple
+
+from ..obs import buildprof
 
 __all__ = ["NVCC_FLAGS", "build", "build_tag", "load"]
 
@@ -76,7 +79,8 @@ def build_tag(source: str, csrc: Path = _CSRC) -> str:
 
 def build(source: str) -> Tuple[Path, str]:
     """Compile ``csrc/<source>`` (if not built yet); returns the library
-    path and the compiler's ``-Xptxas -v`` report."""
+    path and the compiler's ``-Xptxas -v`` report.  An ``nvcc`` run is
+    recorded by :mod:`repro_torch.obs.buildprof` when that is enabled."""
     src = _CSRC / source
     tag = build_tag(source)
     out_dir = _build_dir()
@@ -88,8 +92,10 @@ def build(source: str) -> Tuple[Path, str]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     try:
+        t0 = time.perf_counter()
         proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
                               capture_output=True, text=True, timeout=600)
+        buildprof.record(src.stem, time.perf_counter() - t0, source=source)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src.name} "
                                f"(rc={proc.returncode}):\n{proc.stderr}")

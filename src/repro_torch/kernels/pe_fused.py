@@ -53,6 +53,7 @@ import json
 import math
 import os
 import threading
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -62,6 +63,7 @@ import torch
 from ..device import resolve_device
 from ..graphir.graph import Graph, free_in_ports, sink_nodes
 from ..graphir.ops import OPS
+from ..obs import buildprof
 
 __all__ = ["PEProgram", "block_size", "lower_pattern", "make_pe_kernel",
            "kernel_from_config", "pe_apply", "pe_apply_plain"]
@@ -495,14 +497,37 @@ def pe_apply(pattern, *inputs: torch.Tensor, block=DEFAULT_BLOCK):
                  for _ in prog.outs)
     n = x0.numel()
     if n:
+        args = (*flat, *[o.view(-1) for o in outs])
+        fresh = _new_specialisation(kernel, args, n, block)
+        t0 = time.perf_counter()
         kernel[(triton.cdiv(n, block),)](
-            *flat, *[o.view(-1) for o in outs], n, BLOCK=block,
-            num_warps=4, enable_fp_fusion=False)
+            *args, n, BLOCK=block, num_warps=4, enable_fp_fusion=False)
         pe_apply.launches += 1
+        if fresh:
+            buildprof.record("triton", time.perf_counter() - t0,
+                             pattern=prog.key[:16])
     return _unwrap(outs)
 
 
 pe_apply.launches = 0
+
+_SPECIALISED: set = set()
+
+
+def _new_specialisation(kernel, args, n: int, block: int) -> bool:
+    """True the first time this process launches ``kernel`` with this
+    specialisation key, the launch Triton's JIT compiles for: the
+    pointers' dtypes and 16-byte alignment, ``n`` equal to 1 or divisible
+    by 16 (Triton's integer specialisation), and ``BLOCK``.  ``kernel``
+    stays in ``_KERNELS`` for the life of the process, so its id is
+    unique."""
+    key = (id(kernel),
+           tuple((t.dtype, t.data_ptr() % 16 == 0) for t in args),
+           n == 1, n % 16 == 0, block)
+    with _LOCK:
+        fresh = key not in _SPECIALISED
+        _SPECIALISED.add(key)
+    return fresh
 
 
 def make_pe_kernel(pattern: Graph, *, block=DEFAULT_BLOCK,

@@ -26,6 +26,10 @@ def test_import_leaves_jax_and_repro_out():
             "import repro_torch.kernels.flash_attention\n"
             "import repro_torch.kernels.mamba_scan\n"
             "import repro_torch.fabric.cluster, repro_torch.explore.persist\n"
+            "import repro_torch.serve, repro_torch.serve.__main__\n"
+            "import repro_torch.obs.analyzer, repro_torch.obs.diff\n"
+            "import repro_torch.obs.report, repro_torch.obs.history\n"
+            "import repro_torch.obs.regress, repro_torch.obs.buildprof\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
             "or m.startswith('repro.') or m == 'triton' "
@@ -70,6 +74,30 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
             call()
     # asking for the CPU explicitly runs the plain versions
     assert place(nl, spec, chains=2, sweeps=1, device="cpu").backend == "jax"
+
+
+def test_serving_needs_a_card_by_default(monkeypatch):
+    from repro_torch.serve import ContinuousBatcher, ExploreService
+
+    _no_card(monkeypatch)
+    # the device is resolved when the service is built, not later in the
+    # batch's worker thread
+    for call in (ExploreService, ContinuousBatcher):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert ExploreService(device="cpu").batcher.device.type == "cpu"
+    assert ContinuousBatcher(device="cpu").device.type == "cpu"
+
+
+def test_serve_cli_needs_a_card_by_default():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-m", "repro_torch.serve",
+                          "--smoke"], capture_output=True, text=True,
+                         env=env, timeout=300)
+    assert out.returncode == 1
+    assert "no CUDA device" in out.stderr and "Traceback" not in out.stderr
+    assert "serve smoke OK" not in out.stdout
 
 
 def test_fused_pe_entry_points_need_a_card_by_default(monkeypatch):
