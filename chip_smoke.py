@@ -117,14 +117,46 @@ version:
    it prints the served wall, the solo walls summed, the launches, the
    cache hit's milliseconds and the device's busy share of the served
    wall, beside the card's name and power limit;
-10. print one JSON line ``{"kernels": [...]}`` with launches, max |diff|,
+10. LM serving at full width, the LM substrate's entry into K6: Llama
+   3.2 1B unreduced (``repro_torch.configs``: 16 layers, d_model 2048,
+   32 / 8 heads, head dim 64, d_ff 8192, vocab 128256; random weights
+   made on the card from seed 0) served by
+   ``repro_torch.serve.lm_engine.ServeEngine`` (bfloat16 compute, 4
+   slots, smax 1024) to 8 requests of 512-token prompts with 32 new
+   tokens each (two waves of 4); with K6's launch counter set to 0 just
+   before and read just after, under ``torch.profiler``: one K6 launch a
+   self-attention layer a prefill (128), the trace's count equal to the
+   counter, no other kernel of this repository's sources launched, 32
+   tokens a request, all below the vocabulary; then the model's prefill
+   with K6 against the same prefill with K6's plain version swapped in
+   (``repro_torch.models.transformer.attention`` replaced here, not by a
+   switch in the package), by relative error norm of the logits and the
+   k/v cache: request 0 in float32 at full width, and every served
+   request in bfloat16, where a planted fault (the causal mask one key
+   too far) must exceed the bound; the served run's greedy tokens with
+   the plain version; the six attn-only architectures at ``.reduced()``
+   in float32, forward, prefill and 4 decode steps on the card == the
+   port's CPU run (``card_vs_cpu`` of ``tests/test_torch_lm_gpu.py``);
+   ``python -m repro_torch.launch.serve`` at its defaults; and K6 alone
+   at the served shape (1, 32 / 8, 512, 64, bfloat16, causal) beside its
+   bound and ``scaled_dot_product_attention``.
+   It prints prefill ms a request, decode ms a step, tokens/s, the
+   device's busy share of the traced served wall and the peak device
+   memory, beside the card's name and power limit;
+11. print one JSON line ``{"kernels": [...]}`` with launches, max |diff|,
    times and bounds of K1-K7 (K1's row: its launches counted in the
    main path's trace, its ``ms`` K2 with zero steps, the kernel alone,
    against the bound of that launch's bytes, its ``timed`` key says so;
    K3's ``ms`` its launch alone, its
    ``wrapper_ms`` with the wrapper's host work, as the main path pays
    it; K2's and K3's ``serve_launches`` their launches in the served
-   batch), then ``{"ok": true, "device": {...}}`` as the last line.
+   batch; K6's ``lm_launches`` its launches in phase 10's served run,
+   ``lm_ms`` / ``lm_library_ms`` its and SDPA's time a call at the served
+   shape by CUDA events with the calls queued behind a sleep (the
+   device's pace), ``lm_call_ms`` / ``lm_library_call_ms`` the same
+   issued back to back (the host's pace), ``lm_served_ms`` its device
+   time a launch in the served run's trace, ``lm_bound_ms`` the bound at
+   that shape), then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure exits nonzero; no phase catches an error and carries on
 (phase 6 counts the configurations the port refuses with the reference's
@@ -974,6 +1006,303 @@ def serve_phase(apps, cfg, front, card_rows, card_fails, card) -> dict:
     return {"served_k": served_k, "solo_k": solo_k}
 
 
+#: phase 10: src/repro_torch/configs/llama3_2_1b.py unreduced, served as
+#: the JAX package's LM demo serves: 4 slots, two waves of 4 requests of
+#: one prompt length and one max_new (the only traffic on which the
+#: demo's one cache length is right)
+LM_ARCH, LM_SLOTS, LM_SMAX = "llama3.2-1b", 4, 1024
+LM_REQUESTS, LM_PROMPT, LM_NEW = 8, 512, 32
+#: relative error norm of the full-width float32 prefill's logits and k/v
+#: cache, K6 against its plain version swapped in (K6 is 3xTF32: what is
+#: left is the two float32 summation orders, carried through 16 layers)
+LM_F32_REL = 1e-4
+#: the same in bfloat16, for every served prefill; a planted fault (the
+#: causal mask one key too far) must exceed it
+LM_BF16_REL = 2.0 ** -5
+
+
+def lm_plain_attention(q, k, v, **kw):
+    """K6's plain version with the wrapper's signature."""
+    from repro_torch.kernels.flash_attention import attention_plain
+    kw.pop("device")
+    return attention_plain(q, k, v, **kw)
+
+
+def lm_faulty_attention(q, k, v, **kw):
+    """The plain version with the causal mask one key too far: query i
+    sees keys 0..i+1 (a zero key and value past the last)."""
+    import torch.nn.functional as F
+    return lm_plain_attention(F.pad(q, (0, 0, 1, 0)), F.pad(k, (0, 0, 0, 1)),
+                              F.pad(v, (0, 0, 0, 1)), **kw)[:, :, 1:]
+
+
+def lm_run_with(attn, fn, *args, **kw):
+    """``fn(*args, **kw)`` with ``attn`` in place of the model's
+    flash-attention wrapper (``repro_torch.models.transformer.attention``)."""
+    from repro_torch.models import transformer
+    real = transformer.attention
+    transformer.attention = attn
+    try:
+        return fn(*args, **kw)
+    finally:
+        transformer.attention = real
+
+
+def lm_departure(got, want) -> tuple:
+    """Relative error norms of two prefills' (logits, cache): the logits',
+    and the largest of the k and v caches'."""
+    return (rel_norms(got[0], want[0])[0],
+            max(rel_norms(got[1][k], want[1][k])[0] for k in ("k", "v")))
+
+
+def lm_card_vs_cpu(dev) -> None:
+    """The attn-only architectures at ``.reduced()``, card against CPU:
+    ``card_vs_cpu`` of ``tests/test_torch_lm_gpu.py`` on each (forward,
+    prefill and 4 decode steps in float32, within its ``TOL``; an
+    assertion that fails ends the run)."""
+    import importlib.util
+    path = os.path.join(ROOT, "tests", "test_torch_lm_gpu.py")
+    spec = importlib.util.spec_from_file_location("test_torch_lm_gpu", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    from repro_torch.configs import get_config
+    for arch in mod.ARCHS:
+        err = mod.card_vs_cpu(arch, dev)
+        cfg = get_config(arch).reduced()
+        print(f"{arch} reduced (window {cfg.window}, softcap "
+              f"{cfg.attn_softcap}, qk_norm {cfg.qk_norm}, cross layers "
+              f"{cfg.n_cross_layers}): forward, prefill and 4 decode steps "
+              f"card == CPU within {mod.TOL} (max |diff| {err:.3e})",
+              flush=True)
+
+
+def lm_phase(dev, card) -> dict:
+    """Phase 10: Llama 3.2 1B at full width served by
+    ``repro_torch.serve.lm_engine.ServeEngine`` on the card, K6 in every
+    prefill's self-attention layers, counted under ``torch.profiler``;
+    K6 against its plain version inside the model; the attn-only
+    architectures card == CPU at reduced widths; the launcher; K6 alone
+    at the served shape."""
+    import numpy as np
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention, flash_attention
+    from repro_torch.models import init_params, prefill
+    from repro_torch.serve import lm_engine
+
+    phase("10 LM serving at full width: Llama 3.2 1B through "
+          "repro_torch.serve.lm_engine, prefill attention on K6")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()        # by the earlier phases
+    cfg = get_config(LM_ARCH)
+    hd = cfg.head_dim_of
+    widths = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, hd,
+              cfg.d_ff, cfg.vocab)
+    if widths != (16, 2048, 32, 8, 64, 8192, 128256):
+        fail(f"{LM_ARCH} widths {widths} are not the published ones")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    torch.cuda.synchronize()
+    print(f"{LM_ARCH}: {n_params} parameters ({n_params * 4 / 1e9:.3f} GB "
+          f"float32) made on the card in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_REQUESTS, LM_PROMPT), dtype=np.int64)
+
+    def serve(timers=None):
+        """One served run of the requests: (tokens by request, wall s,
+        the engine's parameters with their bfloat16 copies)."""
+        eng = lm_engine.ServeEngine(cfg, params, slots=LM_SLOTS,
+                                    smax=LM_SMAX,
+                                    compute_dtype=torch.bfloat16, device=dev)
+        for rid in range(LM_REQUESTS):
+            eng.submit(lm_engine.Request(rid, prompts[rid], max_new=LM_NEW))
+        real = (lm_engine.prefill, lm_engine.decode_step)
+        if timers is not None:
+            def timed(name, fn):
+                def run(*a, **kw):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    out = fn(*a, **kw)
+                    torch.cuda.synchronize()
+                    timers[name].append(time.perf_counter() - t)
+                    return out
+                return run
+            lm_engine.prefill = timed("prefill", real[0])
+            lm_engine.decode_step = timed("decode", real[1])
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs = eng.run()
+            torch.cuda.synchronize()
+            return outs, time.perf_counter() - t, eng.params
+        finally:
+            lm_engine.prefill, lm_engine.decode_step = real
+
+    warm = serve()[0]
+    # the counted run, traced
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    (outs, wall, bf16_params), kern, busy_ms = device_kernels(serve)
+    launches = flash_attention.launches
+    want = LM_REQUESTS * cfg.n_self_layers
+    traced = launches_of(kern, "flash_attention_kernel")
+    print(f"K6 launches in the served run: {launches} (counter), {traced} "
+          f"(trace); expected {want}", flush=True)
+    if launches != want or traced != launches:
+        fail(f"K6 launched {launches} times (trace {traced}) for {want} "
+             f"prefill self-attention layers")
+    others = {n: launches_of(kern, n) for n in source_kernels()
+              if n not in ("flash_attention_kernel", "kv_split_kernel")}
+    if any(others.values()):
+        fail(f"the served run launched other kernels of this repository: "
+             f"{others}")
+    if sorted(outs) != list(range(LM_REQUESTS)) or any(
+            len(v) != LM_NEW or not all(0 <= t < cfg.vocab for t in v)
+            for v in outs.values()):
+        fail(f"served tokens malformed: "
+             f"{ {r: len(v) for r, v in outs.items()} }")
+    k6_traced_ms = sum(sum(v) for k, v in kern.items()
+                       if "flash_attention_kernel" in k)
+    top = sorted(kern.items(), key=lambda kv: -sum(kv[1]))[:6]
+    print(f"device time in the traced served run: "
+          f"{sum(len(v) for v in kern.values())} launches; by kernel (ms, "
+          f"launches): "
+          + "; ".join(f"{k[:60]} {sum(v):.3f} ({len(v)})" for k, v in top),
+          flush=True)
+    timers = {"prefill": [], "decode": []}
+    timed_outs, timed_wall, _ = serve(timers)
+    prefill_ms = 1e3 * sum(timers["prefill"]) / len(timers["prefill"])
+    decode_ms = 1e3 * sum(timers["decode"]) / len(timers["decode"])
+    n_tok = sum(len(v) for v in outs.values())
+    print(card)
+    print(f"served {LM_REQUESTS} requests of {LM_PROMPT}-token prompts x "
+          f"{LM_NEW} tokens ({n_tok}), {LM_SLOTS} slots: wall "
+          f"{timed_wall:.4f} s ({n_tok / timed_wall:.1f} tokens/s; prefill "
+          f"{prefill_ms:.4f} ms a request over {len(timers['prefill'])}, "
+          f"decode {decode_ms:.4f} ms a step of {LM_SLOTS} slots over "
+          f"{len(timers['decode'])}, each timed with a synchronize around "
+          f"it); the traced run: {wall:.4f} s, device busy {busy_ms:.2f} ms "
+          f"of it ({100 * busy_ms / (wall * 1e3):.2f}%; "
+          f"{100 * busy_ms / (timed_wall * 1e3):.2f}% of the untraced "
+          f"wall), K6 {k6_traced_ms:.3f} ms on the device "
+          f"({k6_traced_ms / launches:.4f} ms a launch, "
+          f"{100 * k6_traced_ms / (timed_wall * 1e3):.2f}% of the untraced "
+          f"wall); tokens equal across the three runs: "
+          f"{warm == outs == timed_outs}", flush=True)
+
+    # K6 against its plain version inside the model: float32, request 0
+    toks = torch.as_tensor(prompts[:1], device=dev)
+    run32 = dict(smax=LM_SMAX, compute_dtype=torch.float32)
+    rel32 = lm_departure(prefill(params, cfg, toks, **run32),
+                         lm_run_with(lm_plain_attention, prefill, params,
+                                     cfg, toks, **run32))
+    print(f"float32 prefill of request 0 at full width, K6 against its "
+          f"plain version: relative error norm logits {rel32[0]:.3e}, k/v "
+          f"cache {rel32[1]:.3e} (limit {LM_F32_REL})", flush=True)
+    if max(rel32) > LM_F32_REL:
+        fail(f"the float32 prefill with K6 departs from the plain version: "
+             f"{rel32} above {LM_F32_REL}")
+    # bfloat16: every served prefill, and a planted fault that must fail
+    run16 = dict(smax=LM_SMAX, compute_dtype=torch.bfloat16)
+    worst, fault_min = (0.0, 0.0), float("inf")
+    for rid in range(LM_REQUESTS):
+        toks = torch.as_tensor(prompts[rid:rid + 1], device=dev)
+        ref = lm_run_with(lm_plain_attention, prefill, bf16_params, cfg,
+                          toks, **run16)
+        got = lm_departure(prefill(bf16_params, cfg, toks, **run16), ref)
+        bad = lm_departure(lm_run_with(lm_faulty_attention, prefill,
+                                       bf16_params, cfg, toks, **run16), ref)
+        worst = (max(worst[0], got[0]), max(worst[1], got[1]))
+        fault_min = min(fault_min, max(bad))
+        if max(got) > LM_BF16_REL:
+            fail(f"the bfloat16 prefill of request {rid} with K6 departs "
+                 f"from the plain version: {got} above {LM_BF16_REL}")
+        if max(bad) <= LM_BF16_REL:
+            fail(f"the planted fault passes the bfloat16 bound on request "
+                 f"{rid}: {bad}")
+    plain_outs = lm_run_with(lm_plain_attention, serve)[0]
+    same = sum(a == b for r in outs for a, b in zip(outs[r], plain_outs[r]))
+    whole = sum(outs[r] == plain_outs[r] for r in outs)
+    print(f"bfloat16 prefills, K6 against its plain version: largest "
+          f"relative error norm logits {worst[0]:.3e}, k/v cache "
+          f"{worst[1]:.3e} (limit {LM_BF16_REL}); the planted fault (causal "
+          f"mask one key too far) at least {fault_min:.3e}; greedy tokens "
+          f"with the plain version served: {same} of {n_tok} equal, "
+          f"{whole} of {LM_REQUESTS} requests whole", flush=True)
+    del params, bf16_params
+
+    lm_card_vs_cpu(dev)
+
+    # the launcher at its defaults
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"],
+                         capture_output=True, text=True, env=env, cwd=ROOT,
+                         timeout=300)
+    if out.returncode != 0 or "served 8 requests" not in out.stdout:
+        fail(f"python -m repro_torch.launch.serve exited {out.returncode}: "
+             f"{out.stderr.strip()[-2000:]}")
+    print(f"python -m repro_torch.launch.serve: "
+          f"{out.stdout.splitlines()[0]}", flush=True)
+
+    # K6 alone at the served prefill's shape, beside its bound and SDPA
+    gen = torch.Generator(device=dev).manual_seed(22)
+    q, k, v = (torch.randn((1, h, LM_PROMPT, hd), generator=gen,
+                           device=dev, dtype=torch.bfloat16)
+               for h in (cfg.n_heads, cfg.n_kv, cfg.n_kv))
+    def k6():
+        return attention(q, k, v, causal=True)
+
+    def sdpa():
+        return scaled_dot_product_attention(q, k, v, is_causal=True,
+                                            enable_gqa=True)
+    def queued_ms(fn, reps=50):
+        """Mean milliseconds of ``fn()`` on the device: the calls are
+        queued behind a 50 ms sleep kernel, so the events time the device
+        running them back to back, not the host issuing them."""
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps
+
+    # back to back at this size both calls are paced by their host work
+    k6_call, sdpa_call = cuda_ms(k6, 100), cuda_ms(sdpa, 100)
+    k6_ms, sdpa_ms = queued_ms(k6), queued_ms(sdpa)
+    ops = 4 * hd * cfg.n_heads * LM_PROMPT * (LM_PROMPT + 1) // 2
+    byts = 2 * nbytes(q) + nbytes(k, v)
+    t_o, t_b = ops / BF16_OPS_PER_S * 1e3, byts / HBM_BYTES_PER_S * 1e3
+    bound_ms, by = (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
+    peak = torch.cuda.max_memory_allocated()
+    print(card)
+    print(f"K6 at (1, {cfg.n_heads}/{cfg.n_kv}, {LM_PROMPT}, {hd}) bfloat16 "
+          f"causal: {k6_ms:.4f} ms a launch (CUDA events, queued behind a "
+          f"sleep) against a bound of {bound_ms:.5f} ms ({by}: {ops} "
+          f"operations at 989 TFLOP/s, {byts} bytes at 3.35 TB/s; "
+          f"{100 * bound_ms / k6_ms:.2f}% of it), "
+          f"scaled_dot_product_attention {sdpa_ms:.4f} ms (K6 at "
+          f"{k6_ms / sdpa_ms:.2f}x); issued back to back K6 {k6_call:.4f} "
+          f"ms a call, scaled_dot_product_attention {sdpa_call:.4f} ms (the "
+          f"host's pace); K6 in the served run {k6_traced_ms / launches:.4f} "
+          f"ms a launch (trace); peak device memory "
+          f"in phase 10 {peak} bytes ({peak / 2 ** 30:.2f} GiB; "
+          f"{(peak - held) / 2 ** 30:.2f} GiB above the {held} bytes the "
+          f"earlier phases hold)", flush=True)
+    return {"lm_launches": launches, "lm_ms": k6_ms,
+            "lm_call_ms": k6_call, "lm_served_ms": k6_traced_ms / launches,
+            "lm_bound_ms": bound_ms, "lm_library_ms": sdpa_ms,
+            "lm_library_call_ms": sdpa_call}
+
+
 def main() -> int:
     import torch
 
@@ -1608,8 +1937,11 @@ def main() -> int:
     p9 = serve_phase(apps, cfg, front, rows,
                      [f.to_dict() for f in res.failures], card)
 
-    # -- 10: the kernels line ---------------------------------------------
-    phase("10 the kernels line")
+    # -- 10: LM serving at full width, prefill attention on K6 -----------
+    p10 = lm_phase(dev, card)
+
+    # -- 11: the kernels line ---------------------------------------------
+    phase("11 the kernels line")
     def bound(b, ops, peak=FP32_OPS_PER_S):
         t_b, t_o = b / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
@@ -1681,6 +2013,9 @@ def main() -> int:
                     "launches": launches["k6"], "max_abs_err": p7["k6_err"],
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                     "bound_by": by, "library_ms": lib_ms})
+    # K6's launches on the LM serving path (phase 10) and its time there,
+    # a launch at the served prefill's shape, beside its bound and SDPA
+    kernels[-1].update(p10)
     b_ms, by = bound(k7_bytes, k7_ops)
     kernels.append({"name": "mamba_scan_kernel (K7)", "route": "cuda",
                     "source": CSRC + "mamba_scan.cu",

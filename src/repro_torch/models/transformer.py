@@ -1,0 +1,404 @@
+"""Decoder layers of the unified LM, in PyTorch.
+
+The port of the JAX package's ``repro.models.transformer`` for the
+``attn`` mixer: GQA + RoPE, per-layer local/global window, logit
+softcap, QK-norm, gated cross-attention (VLM backbone) and the
+SwiGLU / GELU / GEGLU MLPs.  A layer's parameters live in a
+:class:`DecoderLayer` or :class:`CrossLayer` (a ``ParameterDict`` keyed by
+the JAX package's names, one layer each, not stacked); the model's in a
+:class:`DecoderLM`.  The MoE MLP and the Mamba / Hymba mixers are not
+ported yet: their configurations raise ``NotImplementedError``.
+
+Self-attention whose queries and keys are the same fresh sequence
+(``forward``, and ``prefill`` into an empty cache) runs on the
+flash-attention kernel K6 through ``repro_torch.kernels.ops.attention``
+(its plain version for tensors on the CPU).  That is the function the
+JAX package computes over its ``smax`` cache: there the keys past the
+prompt carry position ``2**30`` and fall outside the causal mask, and a
+global layer's window ``2**30`` admits every key, as window 0 does.
+Decode and cross-attention run the port's ``layers.blockwise_attention``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from ..kernels.ops import attention
+from .config import ArchConfig
+from .layers import (FAR, apply_rope, blockwise_attention, mlp_gelu,
+                     mlp_geglu, mlp_swiglu, rms_norm, rope_tables)
+
+__all__ = ["CrossLayer", "DecoderLM", "DecoderLayer", "cast_for_compute",
+           "cross_layer_body", "cross_layer_shapes", "init_params",
+           "layer_body", "layer_shapes", "param_shapes",
+           "params_from_reference", "require_attn"]
+
+Shapes = Dict[str, Tuple[int, ...]]
+
+#: the matrices the JAX package casts to ``compute_dtype`` at every use;
+#: norm weights and gates it reads in float32
+COMPUTE_MATRICES = frozenset(("wq", "wk", "wv", "wo", "wg", "wu", "wd", "wi",
+                              "wom", "embed", "lm_head"))
+
+
+def require_attn(cfg: ArchConfig) -> None:
+    """Raises ``NotImplementedError`` for the parts the port lacks."""
+    where = "ROADMAP.md section 1, item 4"
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE MLP (the JAX package's models/moe.py) is "
+            f"not ported yet ({where})")
+    if cfg.mixer != "attn":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.mixer!r} mixer (the JAX package's "
+            f"models/ssm.py, with the selective-scan kernel K7) is not "
+            f"ported yet ({where})")
+
+
+# ---------------------------------------------------------------------------
+# parameter shapes (the JAX package's, every mixer and MLP)
+# ---------------------------------------------------------------------------
+
+def _attn_shapes(cfg: ArchConfig) -> Shapes:
+    d, hd = cfg.d_model, cfg.head_dim_of
+    shapes = {
+        "wq": (d, cfg.n_heads * hd),
+        "wk": (d, cfg.n_kv * hd),
+        "wv": (d, cfg.n_kv * hd),
+        "wo": (cfg.n_heads * hd, d),
+    }
+    if cfg.qk_norm:
+        shapes["q_norm"] = (hd,)
+        shapes["k_norm"] = (hd,)
+    return shapes
+
+
+def _mlp_shapes(cfg: ArchConfig) -> Shapes:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp == "gelu":
+        return {"wi": (d, f), "wom": (f, d)}
+    return {"wg": (d, f), "wu": (d, f), "wd": (f, d)}
+
+
+def _moe_shapes(cfg: ArchConfig) -> Shapes:
+    moe = cfg.moe
+    d = cfg.d_model
+    e = moe.n_experts_padded
+    shapes = {
+        "w_router": (d, e),
+        "wg": (e, d, moe.d_expert),
+        "wu": (e, d, moe.d_expert),
+        "wd": (e, moe.d_expert, d),
+    }
+    if moe.n_shared:
+        shapes.update({
+            "sg": (d, moe.d_shared), "su": (d, moe.d_shared),
+            "sd": (moe.d_shared, d), "shared_gate": (d,),
+        })
+    return shapes
+
+
+def _ssm_shapes(cfg: ArchConfig) -> Shapes:
+    ssm = cfg.ssm
+    d = cfg.d_model
+    di = ssm.expand * d
+    r = ssm.dt_rank_of(d)
+    n = ssm.d_state
+    return {
+        "in_proj": (d, 2 * di),
+        "conv_w": (ssm.d_conv, di),
+        "conv_b": (di,),
+        "x_proj": (di, r + 2 * n),
+        "dt_proj": (r, di),
+        "dt_bias": (di,),
+        "A_log": (di, n),
+        "D": (di,),
+        "out_proj": (di, d),
+    }
+
+
+def layer_shapes(cfg: ArchConfig) -> Shapes:
+    """Per-layer parameter shapes (without the stacked L dim)."""
+    shapes: Shapes = {"ln1": (cfg.d_model,)}
+    if cfg.mixer in ("attn", "hymba"):
+        shapes.update(_attn_shapes(cfg))
+    if cfg.mixer in ("mamba", "hymba"):
+        shapes.update({f"ssm_{k}": v for k, v in _ssm_shapes(cfg).items()})
+    if cfg.moe is not None:
+        shapes["ln2"] = (cfg.d_model,)
+        shapes.update(_moe_shapes(cfg))
+    elif cfg.d_ff:
+        shapes["ln2"] = (cfg.d_model,)
+        shapes.update(_mlp_shapes(cfg))
+    return shapes
+
+
+def cross_layer_shapes(cfg: ArchConfig) -> Shapes:
+    shapes = {"ln1": (cfg.d_model,), "ln2": (cfg.d_model,),
+              "gate_attn": (), "gate_mlp": ()}
+    shapes.update(_attn_shapes(cfg))
+    shapes.update(_mlp_shapes(cfg))
+    return shapes
+
+
+def _n_self(cfg: ArchConfig) -> int:
+    return cfg.n_self_layers if cfg.mixer != "mamba" else cfg.n_layers
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    """The JAX package's parameter tree as shapes, layers stacked (L, ...)."""
+    p = {
+        "embed": (cfg.vocab, cfg.d_model),
+        "final_norm": (cfg.d_model,),
+        "layers": {k: (_n_self(cfg),) + s
+                   for k, s in layer_shapes(cfg).items()},
+    }
+    if cfg.n_cross_layers:
+        p["cross_layers"] = {k: (cfg.n_cross_layers,) + s
+                             for k, s in cross_layer_shapes(cfg).items()}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = (cfg.d_model, cfg.vocab)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# parameter modules
+# ---------------------------------------------------------------------------
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    # inference only: no autograd graph is built through the weights
+    return nn.Parameter(t, requires_grad=False)
+
+
+class DecoderLayer(nn.ParameterDict):
+    """One self-attention decoder layer's parameters, keyed by the JAX
+    package's names (``layer_shapes``)."""
+
+
+class CrossLayer(nn.ParameterDict):
+    """One gated cross-attention layer's parameters
+    (``cross_layer_shapes``)."""
+
+
+class DecoderLM(nn.Module):
+    """The model's parameters: ``embed``, ``final_norm``, ``lm_head``
+    (untied configurations only), ``layers`` (self-attention layers in
+    order) and ``cross_layers`` (one every ``cfg.cross_attn_every``)."""
+
+    def __init__(self, embed: torch.Tensor, final_norm: torch.Tensor,
+                 layers, cross_layers=(),
+                 lm_head: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.embed = _param(embed)
+        self.final_norm = _param(final_norm)
+        self.lm_head = None if lm_head is None else _param(lm_head)
+        self.layers = nn.ModuleList(layers)
+        self.cross_layers = nn.ModuleList(cross_layers)
+
+
+def _build(cfg: ArchConfig, leaf) -> DecoderLM:
+    """A :class:`DecoderLM` whose tensors ``leaf(path, name, shape)``
+    makes; ``path`` is ``("layers", i)``, ``("cross_layers", i)`` or
+    ``()``."""
+    require_attn(cfg)
+    shapes = layer_shapes(cfg)
+    layers = [DecoderLayer({k: _param(leaf(("layers", i), k, s))
+                            for k, s in sorted(shapes.items())})
+              for i in range(_n_self(cfg))]
+    cshapes = cross_layer_shapes(cfg)
+    cross = [CrossLayer({k: _param(leaf(("cross_layers", i), k, s))
+                         for k, s in sorted(cshapes.items())})
+             for i in range(cfg.n_cross_layers)]
+    head = None if cfg.tie_embeddings else \
+        leaf((), "lm_head", (cfg.d_model, cfg.vocab))
+    return DecoderLM(leaf((), "embed", (cfg.vocab, cfg.d_model)),
+                     leaf((), "final_norm", (cfg.d_model,)), layers, cross,
+                     head)
+
+
+def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
+                *, dtype=torch.float32, device="cuda") -> DecoderLM:
+    """Random init, the JAX package's rules for the leaves of an attn-only
+    model (its draws are threefry's, these ``generator``'s): norms and the
+    q/k norms are ones, gates are zero, every other weight is normal times
+    ``1/sqrt(fan_in)``, ``fan_in`` the second-to-last dim (of an
+    embedding, the vocabulary).  The Mamba leaves' rules (``D`` and the
+    biases ones, ``A_log`` = ``log(1..n)``) come with that mixer."""
+    dev = resolve_device(device)
+
+    def leaf(path, name, shape):
+        if name.startswith("ln") or name in ("final_norm", "q_norm",
+                                             "k_norm"):
+            return torch.ones(shape, dtype=dtype, device=dev)
+        if name.startswith("gate"):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        fan_in = shape[-2]                      # every other leaf: a matrix
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=dev)
+        return (w * (1.0 / math.sqrt(fan_in))).to(dtype)
+
+    return _build(cfg, leaf)
+
+
+def _to_torch(a, dev: torch.device) -> torch.Tensor:
+    """A numpy array (``ml_dtypes`` bfloat16 included), copied to ``dev``
+    in its own dtype."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16) \
+            .to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def params_from_reference(cfg: ArchConfig, tree: dict, *,
+                          device="cuda") -> DecoderLM:
+    """The port's modules holding the JAX package's parameter tree: nested
+    dicts of numpy arrays, layers stacked (L, ...) as ``param_shapes``
+    gives them.  Values and dtypes are kept."""
+    dev = resolve_device(device)
+    require_attn(cfg)
+    want = param_shapes(cfg)
+    got = {}
+    for key, shape in want.items():
+        group = shape if isinstance(shape, dict) else {None: shape}
+        src = tree[key] if isinstance(shape, dict) else {None: tree[key]}
+        for name, sh in group.items():
+            if tuple(np.shape(src[name])) != sh:
+                raise ValueError(f"{key}/{name}: shape "
+                                 f"{tuple(np.shape(src[name]))}, expected "
+                                 f"{sh}")
+            got[key, name] = _to_torch(src[name], dev)
+
+    def leaf(path, name, shape):
+        return got[path[0], name][path[1]] if path else got[name, None]
+
+    return _build(cfg, leaf)
+
+
+def cast_for_compute(params: DecoderLM, compute_dtype) -> DecoderLM:
+    """A :class:`DecoderLM` holding a ``compute_dtype`` copy, made once, of
+    exactly the matrices the JAX package casts at every use
+    (``COMPUTE_MATRICES``); norm weights and gates are shared, in their
+    own dtype.  The values equal a cast at every use."""
+    def cast(d):
+        return {k: (v.to(compute_dtype) if k in COMPUTE_MATRICES else v)
+                for k, v in d.items()}
+    return DecoderLM(
+        params.embed.to(compute_dtype), params.final_norm,
+        [DecoderLayer({k: _param(v) for k, v in cast(lp).items()})
+         for lp in params.layers],
+        [CrossLayer({k: _param(v) for k, v in cast(lp).items()})
+         for lp in params.cross_layers],
+        None if params.lm_head is None else
+        params.lm_head.to(compute_dtype))
+
+
+# ---------------------------------------------------------------------------
+# layer bodies
+# ---------------------------------------------------------------------------
+
+def _attention(x, lp, cfg: ArchConfig, *, q_pos, is_global: bool,
+               kv_override=None, cache=None, cache_len: Optional[int] = None,
+               compute_dtype=torch.bfloat16):
+    """Self/cross attention.  Returns (out, cache).
+
+    ``cache`` is a layer's (k, v) of (B, Smax, Hkv, hd); the fresh keys and
+    values are written into it in place at ``cache_len``."""
+    b, s, d = x.shape
+    hd = cfg.head_dim_of
+    hq, hkv = cfg.n_heads, cfg.n_kv
+    q = torch.matmul(x, lp["wq"].to(compute_dtype)).reshape(b, s, hq, hd)
+    if kv_override is not None:
+        src = kv_override
+        src_pos = torch.arange(src.shape[1], dtype=torch.int32,
+                               device=x.device)[None].expand(b, -1)
+        causal = False
+    else:
+        src = x
+        src_pos = q_pos
+        causal = True
+    k = torch.matmul(src, lp["wk"].to(compute_dtype)).reshape(b, -1, hkv, hd)
+    v = torch.matmul(src, lp["wv"].to(compute_dtype)).reshape(b, -1, hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
+    if kv_override is None:                         # RoPE on self-attn only
+        cos_q, sin_q = rope_tables(q_pos, hd, cfg.rope_theta)
+        cos_k, sin_k = rope_tables(src_pos, hd, cfg.rope_theta)
+        q = apply_rope(q, cos_q, sin_q)
+        k = apply_rope(k, cos_k, sin_k)
+
+    win = cfg.window if cfg.window and not is_global else 0
+    if cache is not None:
+        k_cache, v_cache = cache
+        k = k.to(k_cache.dtype)
+        v = v.to(v_cache.dtype)
+        k_cache[:, cache_len:cache_len + s] = k
+        v_cache[:, cache_len:cache_len + s] = v
+
+    if kv_override is None and not cache_len:
+        # the queries' own keys, none cached before them: K6
+        out = attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=True, window=win,
+                        softcap=cfg.attn_softcap, scale=cfg.attn_scale,
+                        device=q.device).transpose(1, 2)
+    else:
+        kv_pos = src_pos
+        if cache is not None:                       # decode: the whole cache
+            k, v = cache
+            smax = k.shape[1]
+            pos = torch.arange(smax, dtype=torch.int32, device=x.device)
+            kv_pos = torch.where(pos <= cache_len + s - 1, pos,
+                                 FAR)[None].expand(b, smax)
+        out = blockwise_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                                  causal=causal, window=win or None,
+                                  softcap=cfg.attn_softcap,
+                                  scale=cfg.attn_scale)
+    out = out.reshape(b, s, hq * hd)
+    out = torch.matmul(out, lp["wo"].to(compute_dtype))
+    return out, cache
+
+
+def _mlp(x, lp, cfg: ArchConfig, compute_dtype=torch.bfloat16):
+    if not cfg.d_ff:
+        return torch.zeros_like(x)
+    if cfg.mlp == "gelu":
+        return mlp_gelu(x, lp["wi"].to(compute_dtype),
+                        lp["wom"].to(compute_dtype))
+    fn = mlp_geglu if cfg.mlp == "geglu" else mlp_swiglu
+    return fn(x, lp["wg"].to(compute_dtype), lp["wu"].to(compute_dtype),
+              lp["wd"].to(compute_dtype))
+
+
+def layer_body(x, lp, cfg: ArchConfig, *, q_pos, is_global: bool,
+               cache=None, cache_len: Optional[int] = None,
+               compute_dtype=torch.bfloat16):
+    """One decoder layer.  Returns (x, cache)."""
+    require_attn(cfg)
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    mix, new_cache = _attention(
+        h, lp, cfg, q_pos=q_pos, is_global=is_global, cache=cache,
+        cache_len=cache_len, compute_dtype=compute_dtype)
+    x = x + mix.to(x.dtype)
+    if "ln2" in lp:
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + _mlp(h2, lp, cfg, compute_dtype).to(x.dtype)
+    return x, new_cache
+
+
+def cross_layer_body(x, lp, cfg: ArchConfig, enc, *, q_pos,
+                     compute_dtype=torch.bfloat16):
+    """Gated cross-attention layer (llama-3.2-vision style)."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    attn, _ = _attention(h, lp, cfg, q_pos=q_pos, is_global=True,
+                         kv_override=enc, compute_dtype=compute_dtype)
+    x = x + torch.tanh(lp["gate_attn"]).to(x.dtype) * attn.to(x.dtype)
+    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + torch.tanh(lp["gate_mlp"]).to(x.dtype) * _mlp(
+        h2, lp, cfg, compute_dtype).to(x.dtype)

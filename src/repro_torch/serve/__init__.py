@@ -26,10 +26,10 @@ Entry points::
     python -m repro_torch.serve --port 7341 --store memo/   # NDJSON server
     python -m repro_torch.serve --smoke                     # self check
 
-The JAX package also resolves the deprecated LM-demo names
-``ServeEngine`` / ``Request`` here; they need the LM substrate
-(``models``), which the port does not have yet, so they raise
-``AttributeError``.
+The token-decode LM demo lives in :mod:`repro_torch.serve.lm_engine`; the
+package-level ``ServeEngine`` / ``Request`` names (and
+``repro_torch.serve.engine``) still resolve but warn
+``DeprecationWarning``, as the JAX package's do.
 """
 
 from .batcher import ContinuousBatcher, QueueFull
@@ -43,13 +43,19 @@ __all__ = [
     "ExploreService",
     "PROTOCOL_SCHEMA", "ProtocolError", "ServeRequest", "ServeResponse",
     "encode_request", "parse_request_line", "request_key",
+    # deprecated LM-demo names, resolved lazily with a warning:
+    "Request", "ServeEngine",
 ]
 
 
 def __getattr__(name):
     if name in ("Request", "ServeEngine"):
-        raise AttributeError(
-            f"repro_torch.serve.{name} is the JAX package's deprecated LM "
-            f"demo (repro.serve.lm_engine); it needs the LM substrate "
-            f"(models, configs), which the port does not have yet")
+        import warnings
+        warnings.warn(
+            f"repro_torch.serve.{name} is deprecated: the LM demo moved to "
+            f"repro_torch.serve.lm_engine (repro_torch.serve now names the "
+            f"exploration serving subsystem)",
+            DeprecationWarning, stacklevel=2)
+        from . import lm_engine
+        return getattr(lm_engine, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -30,6 +30,9 @@ def test_import_leaves_jax_and_repro_out():
             "import repro_torch.obs.analyzer, repro_torch.obs.diff\n"
             "import repro_torch.obs.report, repro_torch.obs.history\n"
             "import repro_torch.obs.regress, repro_torch.obs.buildprof\n"
+            "import repro_torch.configs, repro_torch.models\n"
+            "import repro_torch.serve.lm_engine, repro_torch.launch.serve\n"
+            "repro_torch.configs.get_config('llama3.2-1b')\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
             "or m.startswith('repro.') or m == 'triton' "
@@ -59,21 +62,39 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
     from repro_torch.fabric import (FabricSpec, anneal_jax, anneal_jax_batch,
                                     lower, place, place_hierarchical,
                                     synthetic_netlist)
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import init_params, params_from_reference
+    from repro_torch.serve.lm_engine import ServeEngine
 
     _no_card(monkeypatch)
     spec = FabricSpec(rows=4, cols=4)
     nl = synthetic_netlist(spec, seed=0)
     p = lower(nl, spec)
+    cfg = get_config("llama3.2-1b").reduced(n_layers=1, d_model=16,
+                                            d_ff=32, vocab=32)
+    params = init_params(cfg, device="cpu")
+    tree = {"embed": params.embed.numpy(),
+            "final_norm": params.final_norm.numpy(),
+            "layers": {k: params.layers[0][k][None].numpy()
+                       for k in params.layers[0].keys()}}
     for call in (lambda: place(nl, spec, chains=2, sweeps=1),
                  lambda: anneal_jax(p, chains=2, sweeps=1),
                  lambda: anneal_jax_batch([p], chains=2, sweeps=1),
                  lambda: place_hierarchical(nl, spec, cluster_grid=2,
                                             chains=2, sweeps=1),
-                 lambda: Explorer(ml_graphs(), ExploreConfig())):
+                 lambda: Explorer(ml_graphs(), ExploreConfig()),
+                 lambda: init_params(cfg),
+                 lambda: params_from_reference(cfg, tree),
+                 lambda: ServeEngine(cfg, params)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    assert launch_serve.main(["--requests", "1"]) == 1
     # asking for the CPU explicitly runs the plain versions
     assert place(nl, spec, chains=2, sweeps=1, device="cpu").backend == "jax"
+    assert ServeEngine(cfg, params, device="cpu").device.type == "cpu"
+    assert params_from_reference(cfg, tree, device="cpu").embed.shape == \
+        (32, 16)
 
 
 def test_serving_needs_a_card_by_default(monkeypatch):
@@ -98,6 +119,17 @@ def test_serve_cli_needs_a_card_by_default():
     assert out.returncode == 1
     assert "no CUDA device" in out.stderr and "Traceback" not in out.stderr
     assert "serve smoke OK" not in out.stdout
+
+
+def test_lm_serve_cli_needs_a_card_by_default():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"],
+                         capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert out.returncode == 1
+    assert "no CUDA device" in out.stderr and "Traceback" not in out.stderr
+    assert "served" not in out.stdout
 
 
 def test_fused_pe_entry_points_need_a_card_by_default(monkeypatch):
