@@ -143,7 +143,30 @@ version:
    It prints prefill ms a request, decode ms a step, tokens/s, the
    device's busy share of the traced served wall and the peak device
    memory, beside the card's name and power limit;
-11. print one JSON line ``{"kernels": [...]}`` with launches, max |diff|,
+11. Mamba serving at full width, the LM substrate's entry into K7:
+   falcon-mamba-7b unreduced (``repro_torch.configs``: 64 layers,
+   d_model 4096, d_inner 8192, d_state 16, d_conv 4, dt_rank 256, vocab
+   65024, tied embeddings; random weights made on the card from seed 0)
+   served by ``ServeEngine`` (bfloat16 compute, 4 slots) to 8 requests
+   with prompts of 512, 509, 384 and 257 tokens twice (the Mamba mixer
+   reads no position, so mixed lengths are served right) and 32 new
+   tokens each; first every request's solo prefill, K7 against the same
+   prefill with K7's plain version swapped in
+   (``repro_torch.models.ssm.mamba_scan`` replaced here, not by a switch
+   in the package) by relative error norm of the logits, ``ssm_h`` and
+   ``ssm_conv`` (a planted fault, each y_t read from h_(t-1), must exceed
+   the bound), and request 0 in float32 at full width; then a served run
+   in which every refill's spliced ``ssm_h`` and ``ssm_conv`` must be
+   bit-equal to that request's solo prefill and its first token the solo
+   prefill's argmax; then, with the launch counters set to 0 just before
+   and read just after, under ``torch.profiler``: one K7 launch a mixer
+   layer a prefill (512), the trace's count equal to the counter, no K6
+   and no other kernel of this repository's sources; the two Mamba
+   architectures (falcon-mamba-7b, hymba-1.5b) at ``.reduced()`` card ==
+   CPU (``card_vs_cpu``, K7 and K6 counted); and K7 alone at the served
+   shape (1, 512, 8192, 16) float32 with its final state, beside its
+   bound.  It prints the same serving numbers as phase 10;
+12. print one JSON line ``{"kernels": [...]}`` with launches, max |diff|,
    times and bounds of K1-K7 (K1's row: its launches counted in the
    main path's trace, its ``ms`` K2 with zero steps, the kernel alone,
    against the bound of that launch's bytes, its ``timed`` key says so;
@@ -156,7 +179,9 @@ version:
    device's pace), ``lm_call_ms`` / ``lm_library_call_ms`` the same
    issued back to back (the host's pace), ``lm_served_ms`` its device
    time a launch in the served run's trace, ``lm_bound_ms`` the bound at
-   that shape), then ``{"ok": true, "device": {...}}`` as the last line.
+   that shape; K7's ``lm_*`` keys the same from phase 11, without a
+   library call), then ``{"ok": true, "device": {...}}`` as the last
+   line.
 
 Any failure exits nonzero; no phase catches an error and carries on
 (phase 6 counts the configurations the port refuses with the reference's
@@ -254,6 +279,24 @@ def cuda_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def queued_ms(fn, reps: int = 50) -> float:
+    """Mean milliseconds of ``fn()`` on the device: the calls are queued
+    behind a sleep kernel (about 50 ms), so the events time the device
+    running them back to back, not the host issuing them."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -1055,10 +1098,11 @@ def lm_departure(got, want) -> tuple:
             max(rel_norms(got[1][k], want[1][k])[0] for k in ("k", "v")))
 
 
-def lm_card_vs_cpu(dev) -> None:
-    """The attn-only architectures at ``.reduced()``, card against CPU:
-    ``card_vs_cpu`` of ``tests/test_torch_lm_gpu.py`` on each (forward,
-    prefill and 4 decode steps in float32, within its ``TOL``; an
+def lm_card_vs_cpu(dev, mixers) -> None:
+    """The architectures of ``tests/test_torch_lm_gpu.py`` whose mixer is
+    in ``mixers``, at ``.reduced()``, card against CPU: that file's
+    ``card_vs_cpu`` on each (forward, prefill and 4 decode steps in
+    float32, within its ``TOL``, every cache leaf, K6 and K7 counted; an
     assertion that fails ends the run)."""
     import importlib.util
     path = os.path.join(ROOT, "tests", "test_torch_lm_gpu.py")
@@ -1067,12 +1111,14 @@ def lm_card_vs_cpu(dev) -> None:
     spec.loader.exec_module(mod)
     from repro_torch.configs import get_config
     for arch in mod.ARCHS:
-        err = mod.card_vs_cpu(arch, dev)
         cfg = get_config(arch).reduced()
-        print(f"{arch} reduced (window {cfg.window}, softcap "
-              f"{cfg.attn_softcap}, qk_norm {cfg.qk_norm}, cross layers "
-              f"{cfg.n_cross_layers}): forward, prefill and 4 decode steps "
-              f"card == CPU within {mod.TOL} (max |diff| {err:.3e})",
+        if cfg.mixer not in mixers:
+            continue
+        err = mod.card_vs_cpu(arch, dev)
+        print(f"{arch} reduced (mixer {cfg.mixer}, window {cfg.window}, "
+              f"softcap {cfg.attn_softcap}, qk_norm {cfg.qk_norm}, cross "
+              f"layers {cfg.n_cross_layers}): forward, prefill and 4 decode "
+              f"steps card == CPU within {mod.TOL} (max |diff| {err:.3e})",
               flush=True)
 
 
@@ -1235,7 +1281,7 @@ def lm_phase(dev, card) -> dict:
           f"{whole} of {LM_REQUESTS} requests whole", flush=True)
     del params, bf16_params
 
-    lm_card_vs_cpu(dev)
+    lm_card_vs_cpu(dev, ("attn",))
 
     # the launcher at its defaults
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -1259,22 +1305,6 @@ def lm_phase(dev, card) -> dict:
     def sdpa():
         return scaled_dot_product_attention(q, k, v, is_causal=True,
                                             enable_gqa=True)
-    def queued_ms(fn, reps=50):
-        """Mean milliseconds of ``fn()`` on the device: the calls are
-        queued behind a 50 ms sleep kernel, so the events time the device
-        running them back to back, not the host issuing them."""
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(100_000_000)
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / reps
-
     # back to back at this size both calls are paced by their host work
     k6_call, sdpa_call = cuda_ms(k6, 100), cuda_ms(sdpa, 100)
     k6_ms, sdpa_ms = queued_ms(k6), queued_ms(sdpa)
@@ -1301,6 +1331,307 @@ def lm_phase(dev, card) -> dict:
             "lm_call_ms": k6_call, "lm_served_ms": k6_traced_ms / launches,
             "lm_bound_ms": bound_ms, "lm_library_ms": sdpa_ms,
             "lm_library_call_ms": sdpa_call}
+
+
+#: phase 11: src/repro_torch/configs/falcon_mamba_7b.py unreduced, served
+#: by the LM engine: 4 slots, 8 requests of four prompt lengths twice (the
+#: Mamba mixer reads no position, so mixed lengths are served right; the
+#: odd ones end K7's scan inside its 4-step chunk), 32 new tokens each
+MB_ARCH, MB_SLOTS, MB_SMAX, MB_NEW = "falcon-mamba-7b", 4, 1024, 32
+MB_PROMPTS = (512, 509, 384, 257) * 2
+#: relative error norm of the full-width float32 prefill's logits,
+#: ``ssm_h`` and ``ssm_conv``, K7 against its plain version swapped in
+#: (the sum over states in another order, carried through 64 layers)
+MB_F32_REL = 1e-4
+#: the same in bfloat16, for every served prefill; a planted fault (each
+#: y_t read from h_{t-1}) must exceed it
+MB_BF16_REL = 2.0 ** -5
+
+
+def mb_plain_scan(a, bx, c, **kw):
+    """K7's plain version with the wrapper's signature."""
+    from repro_torch.kernels.mamba_scan import mamba_scan_plain
+    kw.pop("device")
+    return mamba_scan_plain(a, bx, c, **kw)
+
+
+def mb_faulty_scan(a, bx, c, *, h0=None, return_state=False, device):
+    """The scan with each y_t read from the state before step t (y_0 from
+    h0, here zero), by K7 itself on c moved one step earlier."""
+    import torch
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    if h0 is not None:
+        raise ValueError("the planted fault runs prefill, from no state")
+    c_next = torch.cat([c[:, 1:], torch.zeros_like(c[:, :1])], 1)
+    out = mamba_scan(a, bx, c_next, return_state=return_state,
+                     device=device)
+    y, h = out if return_state else (out, None)
+    y = torch.cat([torch.zeros_like(y[:, :1]), y[:, :-1]], 1)
+    return (y, h) if return_state else y
+
+
+def mb_run_with(scan, fn, *args, **kw):
+    """``fn(*args, **kw)`` with ``scan`` in place of the Mamba mixer's
+    selective-scan wrapper (``repro_torch.models.ssm.mamba_scan``)."""
+    from repro_torch.models import ssm
+    real = ssm.mamba_scan
+    ssm.mamba_scan = scan
+    try:
+        return fn(*args, **kw)
+    finally:
+        ssm.mamba_scan = real
+
+
+def mb_departure(got, want) -> tuple:
+    """Relative error norms of two prefills' (logits, cache): the
+    logits', ``ssm_h``'s and ``ssm_conv``'s."""
+    return (rel_norms(got[0], want[0])[0],
+            rel_norms(got[1]["ssm_h"], want[1]["ssm_h"])[0],
+            rel_norms(got[1]["ssm_conv"], want[1]["ssm_conv"])[0])
+
+
+def mamba_phase(dev, card) -> dict:
+    """Phase 11: falcon-mamba-7b at full width served by
+    ``repro_torch.serve.lm_engine.ServeEngine`` on the card, K7 in every
+    prefill's Mamba mixers, counted under ``torch.profiler``; K7 against
+    its plain version inside the model; every slot's spliced state equal
+    to its request's solo prefill; the Mamba archs card == CPU at reduced
+    widths; K7 alone at the served shape."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, mamba_scan
+    from repro_torch.models import cast_for_compute, init_params, prefill
+    from repro_torch.models.ssm import discretize
+    from repro_torch.serve import lm_engine
+
+    phase("11 Mamba serving at full width: falcon-mamba-7b through "
+          "repro_torch.serve.lm_engine, prefill's selective scan on K7")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()        # by the earlier phases
+    cfg = get_config(MB_ARCH)
+    widths = (cfg.n_layers, cfg.d_model, cfg.ssm.expand * cfg.d_model,
+              cfg.ssm.d_state, cfg.ssm.d_conv, cfg.ssm.dt_rank_of(
+                  cfg.d_model), cfg.vocab, cfg.tie_embeddings, cfg.d_ff)
+    if widths != (64, 4096, 8192, 16, 4, 256, 65024, True, 0):
+        fail(f"{MB_ARCH} widths {widths} are not the published ones")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    bf16 = cast_for_compute(params, cfg, torch.bfloat16)
+    n_params = sum(p.numel() for p in params.parameters())
+    torch.cuda.synchronize()
+    print(f"{MB_ARCH}: {n_params} parameters ({n_params * 4 / 1e9:.3f} GB "
+          f"float32, bfloat16 copies beside them) made on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int64)
+               for n in MB_PROMPTS]
+    run16 = dict(smax=MB_SMAX, compute_dtype=torch.bfloat16)
+
+    # every request's solo prefill (K7), held against the plain version and
+    # the planted fault; its state and first token kept for the splices
+    solo, worst, fault_min = {}, (0.0, 0.0, 0.0), float("inf")
+    for rid, p in enumerate(prompts):
+        toks = torch.as_tensor(p, device=dev)[None]
+        got = prefill(bf16, cfg, toks, **run16)
+        ref = mb_run_with(mb_plain_scan, prefill, bf16, cfg, toks, **run16)
+        bad = mb_run_with(mb_faulty_scan, prefill, bf16, cfg, toks, **run16)
+        dep, bad_dep = mb_departure(got, ref), mb_departure(bad, ref)
+        worst = tuple(max(w, g) for w, g in zip(worst, dep))
+        fault_min = min(fault_min, max(bad_dep))
+        if max(dep) > MB_BF16_REL:
+            fail(f"the bfloat16 prefill of request {rid} ({len(p)} tokens) "
+                 f"with K7 departs from the plain version: {dep} above "
+                 f"{MB_BF16_REL}")
+        if max(bad_dep) <= MB_BF16_REL:
+            fail(f"the planted fault passes the bfloat16 bound on request "
+                 f"{rid}: {bad_dep}")
+        solo[rid] = (int(torch.argmax(got[0][0])), got[1]["ssm_h"][:, 0],
+                     got[1]["ssm_conv"][:, 0])
+    print(f"bfloat16 prefills ({MB_PROMPTS} tokens), K7 against its plain "
+          f"version: largest relative error norm logits {worst[0]:.3e}, "
+          f"ssm_h {worst[1]:.3e}, ssm_conv {worst[2]:.3e} (limit "
+          f"{MB_BF16_REL}); the planted fault (y_t from h_(t-1)) at least "
+          f"{fault_min:.3e} (at {time.perf_counter() - _T0:.1f} s)",
+          flush=True)
+    # float32 at full width, request 0
+    toks = torch.as_tensor(prompts[0], device=dev)[None]
+    run32 = dict(smax=MB_SMAX, compute_dtype=torch.float32)
+    rel32 = mb_departure(prefill(params, cfg, toks, **run32),
+                         mb_run_with(mb_plain_scan, prefill, params, cfg,
+                                     toks, **run32))
+    print(f"float32 prefill of request 0 at full width, K7 against its "
+          f"plain version: relative error norm logits {rel32[0]:.3e}, "
+          f"ssm_h {rel32[1]:.3e}, ssm_conv {rel32[2]:.3e} (limit "
+          f"{MB_F32_REL})", flush=True)
+    if max(rel32) > MB_F32_REL:
+        fail(f"the float32 prefill with K7 departs from the plain version: "
+             f"{rel32} above {MB_F32_REL}")
+
+    def engine(check=False):
+        """A served run's engine, the requests queued; with ``check``,
+        every refill holds the slot's spliced state bit-equal to the
+        request's solo prefill and its first token to that prefill's."""
+        eng = lm_engine.ServeEngine(cfg, bf16, slots=MB_SLOTS, smax=MB_SMAX,
+                                    compute_dtype=torch.bfloat16, device=dev)
+        for rid, p in enumerate(prompts):
+            eng.submit(lm_engine.Request(rid, p, max_new=MB_NEW))
+        if check:
+            real = eng._refill
+
+            def refill():
+                before = list(eng.active)
+                real()
+                for slot, req in enumerate(eng.active):
+                    if req is None or req is before[slot]:
+                        continue
+                    tok, h, conv = solo[req.rid]
+                    if not (same_bits(eng.cache["ssm_h"][:, slot], h) and
+                            torch.equal(eng.cache["ssm_conv"][:, slot],
+                                        conv)):
+                        fail(f"slot {slot}'s state after request "
+                             f"{req.rid}'s refill differs from its solo "
+                             f"prefill")
+                    if req.out[0] != tok:
+                        fail(f"request {req.rid}'s first token {req.out[0]} "
+                             f"is not its solo prefill's {tok}")
+                    refills.append(req.rid)
+            eng._refill = refill
+        return eng
+
+    def serve(eng, timers=None):
+        """One served run: (tokens by request, wall s)."""
+        real = (lm_engine.prefill, lm_engine.decode_step)
+        if timers is not None:
+            def timed(name, fn):
+                def run(*a, **kw):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    out = fn(*a, **kw)
+                    torch.cuda.synchronize()
+                    timers[name].append(time.perf_counter() - t)
+                    return out
+                return run
+            lm_engine.prefill = timed("prefill", real[0])
+            lm_engine.decode_step = timed("decode", real[1])
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs = eng.run()
+            torch.cuda.synchronize()
+            return outs, time.perf_counter() - t
+        finally:
+            lm_engine.prefill, lm_engine.decode_step = real
+
+    refills = []
+    warm = serve(engine(check=True))[0]
+    if sorted(refills) != list(range(len(prompts))):
+        fail(f"refills checked: {refills}")
+    print(f"every refill ({len(refills)}): the slot's ssm_h and ssm_conv "
+          f"bit-equal to the request's solo prefill, its first token the "
+          f"solo prefill's argmax (at {time.perf_counter() - _T0:.1f} s)",
+          flush=True)
+    # the counted run, traced
+    eng = engine()
+    torch.cuda.synchronize()
+    flash_attention.launches = mamba_scan.launches = 0
+    (outs, wall), kern, busy_ms = device_kernels(lambda: serve(eng))
+    launches, k6 = mamba_scan.launches, flash_attention.launches
+    want = len(prompts) * cfg.n_layers
+    traced = launches_of(kern, "mamba_scan_kernel")
+    print(f"K7 launches in the served run: {launches} (counter), {traced} "
+          f"(trace); expected {want}; K6 {k6} (at "
+          f"{time.perf_counter() - _T0:.1f} s)", flush=True)
+    if launches != want or traced != launches or k6:
+        fail(f"K7 launched {launches} times (trace {traced}) for {want} "
+             f"prefill mixer layers; K6 {k6} times")
+    others = {n: launches_of(kern, n) for n in source_kernels()
+              if n != "mamba_scan_kernel"}
+    if any(others.values()):
+        fail(f"the served run launched other kernels of this repository: "
+             f"{others}")
+    if sorted(outs) != list(range(len(prompts))) or any(
+            len(v) != MB_NEW or not all(0 <= t < cfg.vocab for t in v)
+            for v in outs.values()):
+        fail(f"served tokens malformed: "
+             f"{ {r: len(v) for r, v in outs.items()} }")
+    k7_traced_ms = sum(sum(v) for k, v in kern.items()
+                       if "mamba_scan_kernel" in k)
+    top = sorted(kern.items(), key=lambda kv: -sum(kv[1]))[:6]
+    print(f"device time in the traced served run: "
+          f"{sum(len(v) for v in kern.values())} launches; by kernel (ms, "
+          f"launches): "
+          + "; ".join(f"{k[:60]} {sum(v):.3f} ({len(v)})" for k, v in top),
+          flush=True)
+    timers = {"prefill": [], "decode": []}
+    timed_outs, timed_wall = serve(engine(), timers)
+    prefill_ms = 1e3 * sum(timers["prefill"]) / len(timers["prefill"])
+    decode_ms = 1e3 * sum(timers["decode"]) / len(timers["decode"])
+    n_tok = sum(len(v) for v in outs.values())
+    print(card)
+    print(f"served {len(prompts)} requests of {MB_PROMPTS}-token prompts x "
+          f"{MB_NEW} tokens ({n_tok}), {MB_SLOTS} slots: wall "
+          f"{timed_wall:.4f} s ({n_tok / timed_wall:.1f} tokens/s; prefill "
+          f"{prefill_ms:.4f} ms a request over {len(timers['prefill'])}, "
+          f"decode {decode_ms:.4f} ms a step of {MB_SLOTS} slots over "
+          f"{len(timers['decode'])}, each timed with a synchronize around "
+          f"it); the traced run: {wall:.4f} s, device busy {busy_ms:.2f} ms "
+          f"of it ({100 * busy_ms / (wall * 1e3):.2f}%; "
+          f"{100 * busy_ms / (timed_wall * 1e3):.2f}% of the untraced "
+          f"wall), K7 {k7_traced_ms:.3f} ms on the device "
+          f"({k7_traced_ms / launches:.4f} ms a launch, "
+          f"{100 * k7_traced_ms / (timed_wall * 1e3):.2f}% of the untraced "
+          f"wall); tokens equal across the three runs: "
+          f"{warm == outs == timed_outs} (at {time.perf_counter() - _T0:.1f} "
+          f"s)", flush=True)
+    del params, bf16, solo, eng
+
+    lm_card_vs_cpu(dev, ("mamba", "hymba"))
+
+    # K7 alone at the served prefill's shape, from no state, with h_out
+    gen = torch.Generator(device=dev).manual_seed(23)
+    shape = (1, MB_PROMPTS[0], cfg.ssm.expand * cfg.d_model,
+             cfg.ssm.d_state)
+    a = torch.rand(shape, generator=gen, device=dev) * 0.399 + 0.6
+    bx = torch.randn(shape, generator=gen, device=dev) * 0.1
+    c = torch.randn(shape[:2] + shape[3:], generator=gen, device=dev)
+
+    def k7():
+        return mamba_scan(a, bx, c, return_state=True)
+    y, h = k7()
+    k7_call, k7_ms = cuda_ms(k7, 20), queued_ms(k7)
+    # what builds K7's inputs in the mixer: the discretization, at the
+    # served shape in bfloat16 compute (dt, x (1, S, di), B (1, S, N))
+    dt_, x_ = (torch.randn(shape[:3], generator=gen, device=dev,
+                           dtype=torch.bfloat16) for _ in range(2))
+    b_ = torch.randn(shape[:2] + shape[3:], generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    a_log = torch.log(torch.arange(1, shape[3] + 1, device=dev,
+                                   dtype=torch.float32)).expand(shape[2:])
+    disc_ms = queued_ms(lambda: discretize(dt_, x_, b_, -torch.exp(a_log)))
+    byts = nbytes(a, bx, c, y, h)
+    ops = 4 * a.numel()             # a*h, + bx, * c, + into y per state
+    t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    bound_ms, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+    peak = torch.cuda.max_memory_allocated()
+    print(card)
+    print(f"K7 at {shape} float32 with h_out: {k7_ms:.4f} ms a launch (CUDA "
+          f"events, queued behind a sleep) against a bound of "
+          f"{bound_ms:.5f} ms ({by}: {byts} bytes at 3.35 TB/s, {ops} "
+          f"operations at 67 TFLOP/s; {100 * bound_ms / k7_ms:.2f}% of it, "
+          f"{byts / k7_ms / 1e9:.3f} TB/s); issued back to back "
+          f"{k7_call:.4f} ms a call; the discretization that builds its "
+          f"a and bx (models.ssm.discretize, bfloat16 dt, x, B) "
+          f"{disc_ms:.4f} ms (queued), a layer; in the served run "
+          f"{k7_traced_ms / launches:.4f} ms a launch (trace, prompts of "
+          f"257 to 512 tokens); peak device memory in phase 11 {peak} bytes "
+          f"({peak / 2 ** 30:.2f} GiB; {(peak - held) / 2 ** 30:.2f} GiB "
+          f"above the {held} bytes the earlier phases hold)", flush=True)
+    return {"lm_launches": launches, "lm_ms": k7_ms, "lm_call_ms": k7_call,
+            "lm_served_ms": k7_traced_ms / launches,
+            "lm_bound_ms": bound_ms}
 
 
 def main() -> int:
@@ -1940,8 +2271,11 @@ def main() -> int:
     # -- 10: LM serving at full width, prefill attention on K6 -----------
     p10 = lm_phase(dev, card)
 
-    # -- 11: the kernels line ---------------------------------------------
-    phase("11 the kernels line")
+    # -- 11: Mamba serving at full width, prefill's scan on K7 ------------
+    p11 = mamba_phase(dev, card)
+
+    # -- 12: the kernels line ---------------------------------------------
+    phase("12 the kernels line")
     def bound(b, ops, peak=FP32_OPS_PER_S):
         t_b, t_o = b / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
@@ -2023,6 +2357,9 @@ def main() -> int:
                     "launches": launches["k7"], "max_abs_err": p7["k7_err"],
                     "ms": k7_ms, "plain_ms": k7_plain, "bound_ms": b_ms,
                     "bound_by": by, "library_ms": None})
+    # K7's launches on the Mamba serving path (phase 11) and its time at
+    # the served prefill's shape, beside its bound
+    kernels[-1].update(p11)
     for case, (ms, plain_ms, lib_ms, b, ops, peak, pairs) in k6_rows.items():
         b_ms, by = bound(b, ops, peak)
         split = "" if peak == BF16_OPS_PER_S else (

@@ -2,10 +2,13 @@
 //
 // Replaces the Pallas _scan_kernel of the JAX package
 // (src/repro/kernels/mamba_scan.py): a and bx (B, S, D, N), c (B, S, N),
-// h starts at zero for each (b, d); for each t in order
-// h = a_t * h + bx_t, then y_t = sum_n h[n] * c_t[n], all in float32;
-// y (B, S, D) float32.  a, bx and c are float32 or bfloat16 (widened on
-// load).
+// h starts at h0 (B, D, N) float32, or at zero when h0 is null, for each
+// (b, d); for each t in order h = a_t * h + bx_t, then
+// y_t = sum_n h[n] * c_t[n], all in float32; y (B, S, D) float32, and h
+// after step S-1 into h_out (B, D, N) float32 unless it is null (the
+// Mamba mixer's prefill keeps it as the decode state: the JAX package's
+// scan in src/repro/models/ssm.py takes h0 and returns h_last).  a, bx and
+// c are float32 or bfloat16 (widened on load).
 //
 // Bound: each of a, bx and c is read once and y written once, about one
 // operation per byte, so device-memory bytes bound it (3.35 TB/s on an
@@ -22,9 +25,10 @@
 // chunks of TS (4 at N <= 32); the next chunk's a, bx and c are loaded
 // into registers before this chunk's arithmetic, so the sequential loop is
 // not a chain of dependent loads.  Longer chunks cost registers, and so
-// blocks an SM, for no more bytes in flight.  h = a * h + bx is a multiply
-// and an add (the build's --fmad=false), as the plain PyTorch version
-// computes it.
+// blocks an SM, for no more bytes in flight.  The last chunk's steps past
+// S leave h as it is (a uniform branch), so h_out is h after step S-1
+// whatever S % TS is.  h = a * h + bx is a multiply and an add (the
+// build's --fmad=false), as the plain PyTorch version computes it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -43,7 +47,8 @@ __device__ __forceinline__ float load_in(const __nv_bfloat16* p, size_t i) {
 template <typename T, int G, int NPL>
 __global__ void __launch_bounds__(THREADS)
 mamba_scan_kernel(const T* __restrict__ a, const T* __restrict__ bx,
-                  const T* __restrict__ c, float* __restrict__ y, int S,
+                  const T* __restrict__ c, const float* __restrict__ h0,
+                  float* __restrict__ y, float* __restrict__ h_out, int S,
                   int D, int N) {
   constexpr int CH = THREADS / G;              // channels a block
   constexpr int TS = NPL >= 4 ? 1 : 4 / NPL;   // steps a chunk
@@ -55,10 +60,14 @@ mamba_scan_kernel(const T* __restrict__ a, const T* __restrict__ bx,
   const size_t ab_base = (size_t)b * S * step + (size_t)d * N;
   const size_t c_base = (size_t)b * S * N;
   const size_t y_base = (size_t)b * S * D + d;
+  const size_t h_base = ((size_t)b * D + d) * N;   // h0 / h_out (B, D, N)
 
   float h[NPL];
 #pragma unroll
-  for (int k = 0; k < NPL; ++k) h[k] = 0.0f;
+  for (int k = 0; k < NPL; ++k) {
+    const int n = lane + k * G;
+    h[k] = h0 != nullptr && live && n < N ? h0[h_base + n] : 0.0f;
+  }
 
   float ca[TS][NPL], cb[TS][NPL], cc[TS][NPL];
   float na[TS][NPL], nb[TS][NPL], nc[TS][NPL];
@@ -84,6 +93,7 @@ mamba_scan_kernel(const T* __restrict__ a, const T* __restrict__ bx,
     fetch(t0 + TS, na, nb, nc);                // in flight during this chunk
 #pragma unroll
     for (int s = 0; s < TS; ++s) {
+      if (t0 + s >= S) break;                  // the same for every lane
       float part = 0.0f;
 #pragma unroll
       for (int k = 0; k < NPL; ++k) {
@@ -93,8 +103,7 @@ mamba_scan_kernel(const T* __restrict__ a, const T* __restrict__ bx,
 #pragma unroll
       for (int off = G / 2; off > 0; off >>= 1)
         part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (lane == 0 && live && t0 + s < S)
-        y[y_base + (size_t)(t0 + s) * D] = part;
+      if (lane == 0 && live) y[y_base + (size_t)(t0 + s) * D] = part;
     }
 #pragma unroll
     for (int s = 0; s < TS; ++s)
@@ -105,50 +114,68 @@ mamba_scan_kernel(const T* __restrict__ a, const T* __restrict__ bx,
         cc[s][k] = nc[s][k];
       }
   }
+  if (h_out != nullptr && live) {
+#pragma unroll
+    for (int k = 0; k < NPL; ++k) {
+      const int n = lane + k * G;
+      if (n < N) h_out[h_base + n] = h[k];
+    }
+  }
 }
 
 template <typename T, int G, int NPL>
 int launch(int B, int S, int D, int N, const void* a, const void* bx,
-           const void* c, float* y, cudaStream_t stream) {
+           const void* c, const float* h0, float* y, float* h_out,
+           cudaStream_t stream) {
   constexpr int CH = THREADS / G;
   const dim3 grid((D + CH - 1) / CH, B);
   mamba_scan_kernel<T, G, NPL><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(bx),
-      static_cast<const T*>(c), y, S, D, N);
+      static_cast<const T*>(c), h0, y, h_out, S, D, N);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_n(int B, int S, int D, int N, const void* a, const void* bx,
-             const void* c, float* y, cudaStream_t s) {
-  if (N <= 1) return launch<T, 1, 1>(B, S, D, N, a, bx, c, y, s);
-  if (N <= 2) return launch<T, 2, 1>(B, S, D, N, a, bx, c, y, s);
-  if (N <= 4) return launch<T, 4, 1>(B, S, D, N, a, bx, c, y, s);
-  if (N <= 8) return launch<T, 8, 1>(B, S, D, N, a, bx, c, y, s);
-  if (N <= 16) return launch<T, 16, 1>(B, S, D, N, a, bx, c, y, s);
-  if (N <= 32) return launch<T, 32, 1>(B, S, D, N, a, bx, c, y, s);
-  if (N <= 64) return launch<T, 32, 2>(B, S, D, N, a, bx, c, y, s);
-  if (N <= 128) return launch<T, 32, 4>(B, S, D, N, a, bx, c, y, s);
-  if (N <= 256) return launch<T, 32, 8>(B, S, D, N, a, bx, c, y, s);
-  return launch<T, 32, 16>(B, S, D, N, a, bx, c, y, s);
+             const void* c, const float* h0, float* y, float* h_out,
+             cudaStream_t s) {
+#define K7_LAUNCH(G, NPL) \
+  launch<T, G, NPL>(B, S, D, N, a, bx, c, h0, y, h_out, s)
+  if (N <= 1) return K7_LAUNCH(1, 1);
+  if (N <= 2) return K7_LAUNCH(2, 1);
+  if (N <= 4) return K7_LAUNCH(4, 1);
+  if (N <= 8) return K7_LAUNCH(8, 1);
+  if (N <= 16) return K7_LAUNCH(16, 1);
+  if (N <= 32) return K7_LAUNCH(32, 1);
+  if (N <= 64) return K7_LAUNCH(32, 2);
+  if (N <= 128) return K7_LAUNCH(32, 4);
+  if (N <= 256) return K7_LAUNCH(32, 8);
+  return K7_LAUNCH(32, 16);
+#undef K7_LAUNCH
 }
 
 }  // namespace
 
 extern "C" {
 
-// y (B, S, D) float32 = scan(a, bx (B, S, D, N), c (B, S, N)); dtype 0 =
-// float32, 1 = bfloat16 for a, bx and c.  Returns cudaGetLastError;
+// y (B, S, D) float32 = scan(a, bx (B, S, D, N), c (B, S, N)) from h0
+// (B, D, N) float32 (null: zero); the state after the last step into
+// h_out (B, D, N) float32 unless it is null; dtype 0 = float32, 1 =
+// bfloat16 for a, bx and c.  Returns cudaGetLastError;
 // cudaErrorInvalidValue for N outside 1..512.
 int mamba_scan_launch(int B, int S, int D, int N, const void* a,
-                      const void* bx, const void* c, void* y, int dtype,
-                      void* stream) {
+                      const void* bx, const void* c, const void* h0, void* y,
+                      void* h_out, int dtype, void* stream) {
   if (B <= 0 || S <= 0 || D <= 0) return 0;
   if (N <= 0 || N > 512) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* init = static_cast<const float*>(h0);
   float* out = static_cast<float*>(y);
-  return dtype == 1 ? launch_n<__nv_bfloat16>(B, S, D, N, a, bx, c, out, s)
-                    : launch_n<float>(B, S, D, N, a, bx, c, out, s);
+  float* last = static_cast<float*>(h_out);
+  return dtype == 1
+             ? launch_n<__nv_bfloat16>(B, S, D, N, a, bx, c, init, out, last,
+                                       s)
+             : launch_n<float>(B, S, D, N, a, bx, c, init, out, last, s);
 }
 
 const char* mamba_scan_error_string(int code) {

@@ -7,7 +7,9 @@ vocab 512, random weights from ``--seed``) and the port's ``--device``:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --requests 8 --max-new 16 [--device cpu]
 
-Without a card, ``--device cuda`` (the default) fails with one
+``--arch falcon-mamba-7b`` serves the Mamba mixer (prefill's selective
+scan on K7); ``hymba-1.5b`` runs attention and the Mamba mixer side by
+side.  Without a card, ``--device cuda`` (the default) fails with one
 ``error: ... no CUDA device`` line.
 """
 

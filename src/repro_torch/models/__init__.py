@@ -1,5 +1,5 @@
 """Model zoo: unified decoder LM for the assigned architectures, in
-PyTorch (the ``attn`` mixer; MoE and Mamba / Hymba raise
+PyTorch (the ``attn``, ``mamba`` and ``hymba`` mixers; MoE raises
 ``NotImplementedError``), with the conversions that carry the JAX
 package's parameters and caches across."""
 

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["apply_rope", "blockwise_attention", "mlp_geglu", "mlp_gelu",
-           "mlp_swiglu", "rms_norm", "rope_tables", "soft_cap"]
+           "mlp_swiglu", "rms_norm", "rope_tables", "soft_cap", "softplus"]
 
 #: the position given to keys and queries that no mask may admit
 FAR = 2 ** 30
@@ -158,6 +158,17 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``, which JAX writes as
+    ``max(x, 0) + log1p(exp(-|x - 0|))`` (``x + 0`` where ``x - 0`` is
+    NaN), each op in x's dtype.  Torch's own softplus (``log1p(exp(x))``
+    below a threshold of 20) rounds elsewhere in bfloat16."""
+    zero = torch.zeros((), dtype=x.dtype)
+    d = x - zero
+    out = torch.maximum(x, zero) + torch.log1p(torch.exp(-torch.abs(d)))
+    return torch.where(torch.isnan(d), x + zero, out)
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:

@@ -9,8 +9,13 @@ entry points run where ``params`` lie; tokens (or, for
 
 ``decode_step`` writes the new token's keys and values into the cache's
 tensors in place and returns a new dict holding them (the JAX package
-returns fresh arrays); ``cache["len"]`` is a 0-d int32 tensor on the
-host, as the JAX package's is an int32 scalar.
+returns fresh arrays); the Mamba state (``ssm_conv``, ``ssm_h``) it
+replaces by the layers' new states, stacked, in the dtype the mixer gave
+them, as the JAX package's ``lax.scan`` outputs (``hymba`` cuts its conv
+window from float32 activations: its ``ssm_conv`` turns float32 after a
+``prefill`` or a ``decode_step``, though ``init_cache`` makes it in the
+compute dtype).  ``cache["len"]`` is a 0-d int32 tensor on the host, as
+the JAX package's is an int32 scalar; the Mamba mixer reads no position.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from ..device import resolve_device
 from .config import ArchConfig
 from .layers import blockwise_attention, rms_norm, soft_cap
 from .transformer import (DecoderLM, _mlp, _n_self, _to_torch,
-                          cross_layer_body, layer_body, require_attn)
+                          cross_layer_body, layer_body, require_no_moe)
 
 __all__ = ["cache_from_reference", "cache_shapes", "cache_to_numpy",
            "decode_step", "forward", "init_cache", "prefill"]
@@ -73,6 +78,18 @@ def _enc(params: DecoderLM, enc, compute_dtype):
     return torch.as_tensor(enc, device=params.embed.device).to(compute_dtype)
 
 
+def _layer_cache(cache, i: int):
+    """Layer ``i``'s (k, v) cache, or None for an attention-free model."""
+    return (cache["k"][i], cache["v"][i]) if "k" in cache else None
+
+
+def _set_ssm_state(cache, states) -> None:
+    """The layers' new Mamba states into ``cache``, stacked (L, B, ...)."""
+    if states:
+        cache["ssm_conv"] = torch.stack([st["conv"] for st in states])
+        cache["ssm_h"] = torch.stack([st["h"] for st in states])
+
+
 # ---------------------------------------------------------------------------
 # forward (teacher-forced logits)
 # ---------------------------------------------------------------------------
@@ -80,14 +97,14 @@ def _enc(params: DecoderLM, enc, compute_dtype):
 def forward(params: DecoderLM, cfg: ArchConfig, tokens, *,
             enc=None, compute_dtype=torch.bfloat16,
             return_hidden: bool = False) -> torch.Tensor:
-    require_attn(cfg)
+    require_no_moe(cfg)
     b, s = tokens.shape[:2]
     x = _embed(params, cfg, tokens, compute_dtype)
     q_pos = _positions(b, s, 0, x.device)
     enc_c = _enc(params, enc, compute_dtype) if cfg.n_cross_layers else None
     for i, is_global, cross in _groups(cfg):
-        x, _ = layer_body(x, params.layers[i], cfg, q_pos=q_pos,
-                          is_global=is_global, compute_dtype=compute_dtype)
+        x, _, _ = layer_body(x, params.layers[i], cfg, q_pos=q_pos,
+                             is_global=is_global, compute_dtype=compute_dtype)
         if cross is not None:
             x = cross_layer_body(x, params.cross_layers[cross], cfg, enc_c,
                                  q_pos=q_pos, compute_dtype=compute_dtype)
@@ -137,18 +154,24 @@ def prefill(params: DecoderLM, cfg: ArchConfig, tokens, *, smax: int,
             enc=None, compute_dtype=torch.bfloat16
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Returns (last-position logits (B, V), filled caches)."""
-    require_attn(cfg)
+    require_no_moe(cfg)
     b, s = tokens.shape[:2]
     x = _embed(params, cfg, tokens, compute_dtype)
     q_pos = _positions(b, s, 0, x.device)
     cache = init_cache(cfg, b, smax, compute_dtype, device=x.device)
     enc_c = _enc(params, enc, compute_dtype) if cfg.n_cross_layers else None
     hd = cfg.head_dim_of
+    has_ssm = cfg.mixer != "attn"
+    states = []
     for i, is_global, cross in _groups(cfg):
-        x, _ = layer_body(x, params.layers[i], cfg, q_pos=q_pos,
-                          is_global=is_global,
-                          cache=(cache["k"][i], cache["v"][i]), cache_len=0,
-                          compute_dtype=compute_dtype)
+        # the Mamba mixer from a zero state: no state given, one returned
+        x, _, st = layer_body(x, params.layers[i], cfg, q_pos=q_pos,
+                              is_global=is_global,
+                              cache=_layer_cache(cache, i), cache_len=0,
+                              return_state=has_ssm,
+                              compute_dtype=compute_dtype)
+        if has_ssm:
+            states.append(st)
         if cross is not None:
             lp = params.cross_layers[cross]
             # the cross layer's K/V, cached for decode
@@ -160,6 +183,7 @@ def prefill(params: DecoderLM, cfg: ArchConfig, tokens, *, smax: int,
                                                            hd)
             x = cross_layer_body(x, lp, cfg, enc_c, q_pos=q_pos,
                                  compute_dtype=compute_dtype)
+    _set_ssm_state(cache, states)
     cache["len"] = torch.tensor(s, dtype=torch.int32)
     logits = _unembed(params, cfg, x[:, -1:])[:, 0]
     return logits, cache
@@ -173,9 +197,9 @@ def decode_step(params: DecoderLM, cfg: ArchConfig, token, cache, *,
                 compute_dtype=torch.bfloat16
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """token: (B,) ints (or (B, 1, D) embeddings).  Returns (logits (B,V),
-    the cache with the token's keys and values written in place and
-    ``len`` advanced)."""
-    require_attn(cfg)
+    the cache with the token's keys and values written in place, the
+    Mamba state replaced and ``len`` advanced)."""
+    require_no_moe(cfg)
     b = token.shape[0]
     if cfg.input_mode == "embeddings":
         x = torch.as_tensor(token, device=params.embed.device)
@@ -188,11 +212,17 @@ def decode_step(params: DecoderLM, cfg: ArchConfig, token, cache, *,
     pos = int(cache["len"])
     q_pos = _positions(b, 1, pos, x.device)
     hd = cfg.head_dim_of
+    has_ssm = cfg.mixer != "attn"
+    states = []
     for i, is_global, cross in _groups(cfg):
-        x, _ = layer_body(x, params.layers[i], cfg, q_pos=q_pos,
-                          is_global=is_global,
-                          cache=(cache["k"][i], cache["v"][i]),
-                          cache_len=pos, compute_dtype=compute_dtype)
+        state = ({"conv": cache["ssm_conv"][i], "h": cache["ssm_h"][i]}
+                 if has_ssm else None)
+        x, _, st = layer_body(x, params.layers[i], cfg, q_pos=q_pos,
+                              is_global=is_global,
+                              cache=_layer_cache(cache, i), cache_len=pos,
+                              ssm_state=state, compute_dtype=compute_dtype)
+        if has_ssm:
+            states.append(st)
         if cross is not None:
             # cross attention against the cached encoder K/V
             lp = params.cross_layers[cross]
@@ -211,6 +241,7 @@ def decode_step(params: DecoderLM, cfg: ArchConfig, token, cache, *,
             x = x + torch.tanh(lp["gate_mlp"]).to(x.dtype) * _mlp(
                 h2, lp, cfg, compute_dtype).to(x.dtype)
     new_cache = dict(cache)
+    _set_ssm_state(new_cache, states)
     new_cache["len"] = cache["len"] + 1
     logits = _unembed(params, cfg, x)[:, 0]
     return logits, new_cache

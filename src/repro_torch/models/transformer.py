@@ -1,13 +1,15 @@
 """Decoder layers of the unified LM, in PyTorch.
 
-The port of the JAX package's ``repro.models.transformer`` for the
-``attn`` mixer: GQA + RoPE, per-layer local/global window, logit
-softcap, QK-norm, gated cross-attention (VLM backbone) and the
-SwiGLU / GELU / GEGLU MLPs.  A layer's parameters live in a
-:class:`DecoderLayer` or :class:`CrossLayer` (a ``ParameterDict`` keyed by
-the JAX package's names, one layer each, not stacked); the model's in a
-:class:`DecoderLM`.  The MoE MLP and the Mamba / Hymba mixers are not
-ported yet: their configurations raise ``NotImplementedError``.
+The port of the JAX package's ``repro.models.transformer``: the ``attn``
+mixer (GQA + RoPE, per-layer local/global window, logit softcap,
+QK-norm), the ``mamba`` mixer (``models.ssm.mamba_mixer``) and the
+``hymba`` one (attention and the Mamba mixer on the same normed input,
+averaged), gated cross-attention (VLM backbone) and the SwiGLU / GELU /
+GEGLU MLPs.  A layer's parameters live in a :class:`DecoderLayer` or
+:class:`CrossLayer` (a ``ParameterDict`` keyed by the JAX package's
+names, one layer each, not stacked); the model's in a :class:`DecoderLM`.
+The MoE MLP is not ported yet: its configurations raise
+``NotImplementedError``.
 
 Self-attention whose queries and keys are the same fresh sequence
 (``forward``, and ``prefill`` into an empty cache) runs on the
@@ -33,11 +35,12 @@ from ..kernels.ops import attention
 from .config import ArchConfig
 from .layers import (FAR, apply_rope, blockwise_attention, mlp_gelu,
                      mlp_geglu, mlp_swiglu, rms_norm, rope_tables)
+from .ssm import mamba_mixer
 
 __all__ = ["CrossLayer", "DecoderLM", "DecoderLayer", "cast_for_compute",
-           "cross_layer_body", "cross_layer_shapes", "init_params",
-           "layer_body", "layer_shapes", "param_shapes",
-           "params_from_reference", "require_attn"]
+           "cross_layer_body", "cross_layer_shapes",
+           "init_params", "layer_body", "layer_shapes", "param_shapes",
+           "params_from_reference", "require_no_moe"]
 
 Shapes = Dict[str, Tuple[int, ...]]
 
@@ -45,20 +48,30 @@ Shapes = Dict[str, Tuple[int, ...]]
 #: norm weights and gates it reads in float32
 COMPUTE_MATRICES = frozenset(("wq", "wk", "wv", "wo", "wg", "wu", "wd", "wi",
                               "wom", "embed", "lm_head"))
+#: the Mamba leaves the ``mamba`` mixer reads in float32 (``hymba`` casts
+#: none of its ``ssm_*`` leaves)
+SSM_FLOAT32 = frozenset(("ssm_A_log", "ssm_D"))
 
 
-def require_attn(cfg: ArchConfig) -> None:
-    """Raises ``NotImplementedError`` for the parts the port lacks."""
-    where = "ROADMAP.md section 1, item 4"
+def _as_used(cfg: ArchConfig, name: str, v: torch.Tensor, compute_dtype):
+    """Leaf ``name`` as the JAX package reads it at every use: the
+    matrices of :data:`COMPUTE_MATRICES` in ``compute_dtype``, and in a
+    ``mamba`` layer every float32 ``ssm_*`` leaf but ``A_log`` and ``D``;
+    any other leaf as it is."""
+    if name in COMPUTE_MATRICES or (
+            cfg.mixer == "mamba" and name.startswith("ssm_") and
+            name not in SSM_FLOAT32 and v.dtype == torch.float32):
+        return v.to(compute_dtype)
+    return v
+
+
+def require_no_moe(cfg: ArchConfig) -> None:
+    """Raises ``NotImplementedError`` for an MoE configuration: the MoE
+    MLP is the part of the model the port lacks."""
     if cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: the MoE MLP (the JAX package's models/moe.py) is "
-            f"not ported yet ({where})")
-    if cfg.mixer != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.mixer!r} mixer (the JAX package's "
-            f"models/ssm.py, with the selective-scan kernel K7) is not "
-            f"ported yet ({where})")
+            f"not ported yet (ROADMAP.md section 1, item 4)")
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +219,7 @@ def _build(cfg: ArchConfig, leaf) -> DecoderLM:
     """A :class:`DecoderLM` whose tensors ``leaf(path, name, shape)``
     makes; ``path`` is ``("layers", i)``, ``("cross_layers", i)`` or
     ``()``."""
-    require_attn(cfg)
+    require_no_moe(cfg)
     shapes = layer_shapes(cfg)
     layers = [DecoderLayer({k: _param(leaf(("layers", i), k, s))
                             for k, s in sorted(shapes.items())})
@@ -224,24 +237,33 @@ def _build(cfg: ArchConfig, leaf) -> DecoderLM:
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                 *, dtype=torch.float32, device="cuda") -> DecoderLM:
-    """Random init, the JAX package's rules for the leaves of an attn-only
-    model (its draws are threefry's, these ``generator``'s): norms and the
-    q/k norms are ones, gates are zero, every other weight is normal times
-    ``1/sqrt(fan_in)``, ``fan_in`` the second-to-last dim (of an
-    embedding, the vocabulary).  The Mamba leaves' rules (``D`` and the
-    biases ones, ``A_log`` = ``log(1..n)``) come with that mixer."""
+    """Random init by the rules the JAX package's ``init_params`` applies
+    (its draws are threefry's, these ``generator``'s): norms and the q/k
+    norms are ones, gates are zero, ``ssm_A_log`` is ``log(1..N)`` on
+    every channel, and every other leaf is normal times
+    ``1/sqrt(fan_in)``, ``fan_in`` the second-to-last dim of the leaf as
+    the JAX package stacks it, (L, ...) for a layer's: of an embedding,
+    the vocabulary; of a layer's vector (``ssm_D``, ``ssm_conv_b``,
+    ``ssm_dt_bias``: their ``ssm_`` names miss the JAX package's list of
+    ones) the layer count L; of ``ssm_conv_w`` the kernel width."""
     dev = resolve_device(device)
+    depth = {"layers": _n_self(cfg), "cross_layers": cfg.n_cross_layers}
 
     def leaf(path, name, shape):
         if name.startswith("ln") or name in ("final_norm", "q_norm",
                                              "k_norm"):
             return torch.ones(shape, dtype=dtype, device=dev)
+        if name.endswith("A_log"):
+            n = torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                             device=dev)
+            return torch.log(n).expand(shape).contiguous().to(dtype)
         if name.startswith("gate"):
             return torch.zeros(shape, dtype=dtype, device=dev)
-        fan_in = shape[-2]                      # every other leaf: a matrix
+        stacked = ((depth[path[0]],) if path else ()) + tuple(shape)
+        fan_in = stacked[-2] if len(stacked) >= 2 else stacked[-1]
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=dev)
-        return (w * (1.0 / math.sqrt(fan_in))).to(dtype)
+        return (w * (1.0 / math.sqrt(max(1, fan_in)))).to(dtype)
 
     return _build(cfg, leaf)
 
@@ -262,7 +284,7 @@ def params_from_reference(cfg: ArchConfig, tree: dict, *,
     dicts of numpy arrays, layers stacked (L, ...) as ``param_shapes``
     gives them.  Values and dtypes are kept."""
     dev = resolve_device(device)
-    require_attn(cfg)
+    require_no_moe(cfg)
     want = param_shapes(cfg)
     got = {}
     for key, shape in want.items():
@@ -281,14 +303,16 @@ def params_from_reference(cfg: ArchConfig, tree: dict, *,
     return _build(cfg, leaf)
 
 
-def cast_for_compute(params: DecoderLM, compute_dtype) -> DecoderLM:
+def cast_for_compute(params: DecoderLM, cfg: ArchConfig,
+                     compute_dtype) -> DecoderLM:
     """A :class:`DecoderLM` holding a ``compute_dtype`` copy, made once, of
-    exactly the matrices the JAX package casts at every use
-    (``COMPUTE_MATRICES``); norm weights and gates are shared, in their
-    own dtype.  The values equal a cast at every use."""
+    exactly the leaves the JAX package casts at every use (the matrices,
+    and a ``mamba`` layer's float32 ``ssm_*`` leaves but ``A_log`` and
+    ``D``); norm weights, gates and the leaves a ``hymba`` layer reads
+    uncast are shared, in their own dtype.  The values equal a cast at
+    every use."""
     def cast(d):
-        return {k: (v.to(compute_dtype) if k in COMPUTE_MATRICES else v)
-                for k, v in d.items()}
+        return {k: _as_used(cfg, k, v, compute_dtype) for k, v in d.items()}
     return DecoderLM(
         params.embed.to(compute_dtype), params.final_norm,
         [DecoderLayer({k: _param(v) for k, v in cast(lp).items()})
@@ -377,19 +401,32 @@ def _mlp(x, lp, cfg: ArchConfig, compute_dtype=torch.bfloat16):
 
 
 def layer_body(x, lp, cfg: ArchConfig, *, q_pos, is_global: bool,
-               cache=None, cache_len: Optional[int] = None,
-               compute_dtype=torch.bfloat16):
-    """One decoder layer.  Returns (x, cache)."""
-    require_attn(cfg)
+               cache=None, cache_len: Optional[int] = None, ssm_state=None,
+               return_state: bool = False, compute_dtype=torch.bfloat16):
+    """One decoder layer.  Returns (x, cache, new SSM state): the state
+    (``{"conv", "h"}``) when the layer has the Mamba mixer and
+    ``ssm_state`` is given (decode) or ``return_state`` is set (prefill,
+    from a zero state), else None."""
+    require_no_moe(cfg)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    mix, new_cache = _attention(
-        h, lp, cfg, q_pos=q_pos, is_global=is_global, cache=cache,
-        cache_len=cache_len, compute_dtype=compute_dtype)
+    new_cache = new_state = None
+    if cfg.mixer != "mamba":
+        mix, new_cache = _attention(
+            h, lp, cfg, q_pos=q_pos, is_global=is_global, cache=cache,
+            cache_len=cache_len, compute_dtype=compute_dtype)
+    if cfg.mixer != "attn":
+        sp = {k[len("ssm_"):]: _as_used(cfg, k, v, compute_dtype)
+              for k, v in lp.items() if k.startswith("ssm_")}
+        want = return_state or ssm_state is not None
+        out = mamba_mixer(h, sp, cfg.ssm, state=ssm_state, return_state=want)
+        ssm_out, new_state = out if want else (out, None)
+        # hymba: the two heads on the same normed input, averaged
+        mix = ssm_out if cfg.mixer == "mamba" else 0.5 * (mix + ssm_out)
     x = x + mix.to(x.dtype)
-    if "ln2" in lp:
+    if "ln2" in lp:                           # attn-free mamba: no MLP
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + _mlp(h2, lp, cfg, compute_dtype).to(x.dtype)
-    return x, new_cache
+    return x, new_cache, new_state
 
 
 def cross_layer_body(x, lp, cfg: ArchConfig, enc, *, q_pos,

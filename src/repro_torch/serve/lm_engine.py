@@ -3,17 +3,22 @@
 The port of the JAX package's ``repro.serve.lm_engine``, semantics kept:
 a fixed decode batch of ``slots``; a finished or empty slot is refilled by
 prefilling one queued request at batch 1 and splicing its cache rows into
-the slot (every cache leaf whose second dim is ``slots``); decoding is
-greedy (the first index on ties).  Prefill runs the flash-attention
-kernel K6 in every self-attention layer; decode runs the port's
-``blockwise_attention`` over the cache.
+the slot (every cache leaf whose second dim is ``slots``: k/v and the
+Mamba state ``ssm_conv``/``ssm_h``, each cast into the slot's dtype as
+JAX's ``.at[:, s].set`` casts); decoding is greedy (the first index on
+ties).  Prefill runs the flash-attention kernel K6 in every
+self-attention layer and the selective-scan kernel K7 in every Mamba
+mixer; decode runs the port's ``blockwise_attention`` over the cache and
+the Mamba mixer's one-step recurrence.
 
 ``cache["len"]`` is one length for all slots: each refill sets it to that
-request's prompt length, as the JAX package does.  So the engine is
-right only when every prompt has one length and every request one
-``max_new`` (a fault of the JAX demo, kept).
+request's prompt length, as the JAX package does.  Attention reads it, so
+for the ``attn`` and ``hymba`` mixers the engine is right only when every
+prompt has one length and every request one ``max_new`` (a fault of the
+JAX demo, kept).  The ``mamba`` mixer (falcon-mamba-7b) reads no
+position: there prompts of mixed lengths are served right.
 
-The engine holds a ``compute_dtype`` copy, made once, of the matrices the
+The engine holds a ``compute_dtype`` copy, made once, of the leaves the
 model casts at every use (``models.cast_for_compute``).  The device is
 resolved when the engine is built: ``device="cuda"`` (the default) raises
 without a card.
@@ -55,7 +60,8 @@ class ServeEngine:
                  device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = cast_for_compute(params, compute_dtype).to(self.device)
+        self.params = cast_for_compute(params, cfg, compute_dtype).to(
+            self.device)
         self.slots = slots
         self.smax = smax
         self.compute_dtype = compute_dtype

@@ -5,8 +5,9 @@ Run on a machine with an NVIDIA Hopper card:
 Each test decides inside itself whether a card exists and skips with a
 reason when none does; the file imports nothing of the JAX package.
 Tolerance: rtol = atol = 1e-4 in float32 (K6 is 3xTF32, cuBLAS float32
-products are not TF32), greedy tokens equal.  ``chip_smoke.py`` phase 10
-runs :func:`card_vs_cpu` on every arch too.
+products are not TF32, K7 sums the states in another order), greedy
+tokens equal.  ``chip_smoke.py`` phases 10 and 11 run :func:`card_vs_cpu`
+on every arch too.
 """
 
 import numpy as np
@@ -14,14 +15,16 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels import flash_attention
+from repro_torch.kernels import flash_attention, mamba_scan
+from repro_torch.kernels.mamba_scan import mamba_scan_plain
 from repro_torch.models import decode_step, forward, init_params, prefill
 from repro_torch.serve.lm_engine import Request, ServeEngine
 
 pytestmark = pytest.mark.gpu
 
 ARCHS = ["llama3.2-1b", "deepseek-coder-33b", "gemma2-27b", "gemma3-27b",
-         "musicgen-large", "llama-3.2-vision-90b"]
+         "musicgen-large", "llama-3.2-vision-90b", "falcon-mamba-7b",
+         "hymba-1.5b"]
 TOL = 1e-4
 
 
@@ -51,9 +54,9 @@ def card_vs_cpu(arch, dev="cuda"):
     from one set of weights: forward, prefill and 4 decode steps; the
     prompt (20) is longer than the reduced window (16), so local layers
     mask.  Asserts every logit and cache leaf finite and within
-    :data:`TOL`, and K6 launched once a self-attention layer in forward
-    and in prefill and never in decode; returns the largest
-    |card - CPU|."""
+    :data:`TOL`, and K6 launched once a self-attention layer and K7 once a
+    Mamba mixer layer in forward and in prefill and never in decode;
+    returns the largest |card - CPU|."""
     cfg = get_config(arch).reduced()
     cpu, card = _both(cfg, dev=dev)
     toks, enc = _inputs(cfg)
@@ -68,15 +71,17 @@ def card_vs_cpu(arch, dev="cuda"):
                                    atol=TOL, err_msg=f"{arch}: {what}")
         worst = max(worst, float((got - want).abs().max()))
 
-    flash_attention.launches = 0
+    k6 = 0 if cfg.mixer == "mamba" else 2 * cfg.n_self_layers
+    k7 = 0 if cfg.mixer == "attn" else 2 * cfg.n_layers
+    flash_attention.launches = mamba_scan.launches = 0
     close(forward(card, cfg, toks, **kw), forward(cpu, cfg, toks, **kw),
           "forward")
     lc, cc = prefill(card, cfg, toks[:, :20], smax=32, **kw)
     lh, ch = prefill(cpu, cfg, toks[:, :20], smax=32, **kw)
-    assert flash_attention.launches == 2 * cfg.n_self_layers
+    assert (flash_attention.launches, mamba_scan.launches) == (k6, k7)
     close(lc, lh, "prefill")
-    for key in ("k", "v", "cross_k", "cross_v"):
-        if key in ch:
+    for key in sorted(ch):
+        if key != "len":
             close(cc[key], ch[key], f"prefill cache {key}")
     for t in range(20, 24):
         lc, cc = decode_step(card, cfg, toks[:, t], cc,
@@ -84,7 +89,10 @@ def card_vs_cpu(arch, dev="cuda"):
         lh, ch = decode_step(cpu, cfg, toks[:, t], ch,
                              compute_dtype=torch.float32)
         close(lc, lh, f"decode step {t}")
-    assert flash_attention.launches == 2 * cfg.n_self_layers
+    for key in sorted(ch):
+        if key != "len":
+            close(cc[key], ch[key], f"decoded cache {key}")
+    assert (flash_attention.launches, mamba_scan.launches) == (k6, k7)
     return worst
 
 
@@ -116,3 +124,31 @@ def test_served_run_card_equals_cpu():
             assert flash_attention.launches == 4 * cfg.n_layers
     assert outs[0] == outs[1]
     assert all(len(t) == 8 for t in outs[0].values())
+
+
+@pytest.mark.parametrize("s", [13, 509])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_k7_state_equals_plain(s, with_h0):
+    """K7 with ``h_out`` (and from ``h0``) against its plain version at
+    the falcon-mamba-7b widths (d_inner 8192, d_state 16) cut to 256
+    channels, at S not a multiple of K7's 4-step chunk: ``h_last`` is the
+    state after step S-1, not after the padded chunk."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(s)
+    shape = (2, s, 256, 16)
+    a = torch.rand(shape, generator=gen, device="cuda") * 0.399 + 0.6
+    bx = torch.randn(shape, generator=gen, device="cuda") * 0.1
+    c = torch.randn((2, s, 16), generator=gen, device="cuda")
+    h0 = torch.randn((2, 256, 16), generator=gen, device="cuda") \
+        if with_h0 else None
+    launches = mamba_scan.launches
+    y, h = mamba_scan(a, bx, c, h0=h0, return_state=True)
+    torch.cuda.synchronize()
+    assert mamba_scan.launches == launches + 1
+    want_y, want_h = mamba_scan_plain(a, bx, c, h0=h0, return_state=True)
+    assert h.shape == (2, 256, 16) and h.dtype == torch.float32
+    # one multiply and one add a step, as the plain version: h bit for bit
+    assert torch.equal(h, want_h)
+    np.testing.assert_allclose(y.cpu().numpy(), want_y.cpu().numpy(),
+                               rtol=TOL, atol=TOL)
+    assert torch.equal(mamba_scan(a, bx, c, h0=h0), y)

@@ -21,7 +21,9 @@ flash-attention wrapper (K6's plain version on CPU tensors); the JAX
 package computes it with ``blockwise_attention`` over the ``smax`` cache.
 ``test_prefill_k6_equals_blockwise_over_cache`` holds each such call to
 the port's ``blockwise_attention`` over the cache with the JAX package's
-masks, layer by layer.
+masks, layer by layer.  The Mamba mixer's prefill scan runs through the
+selective-scan wrapper (K7's plain version on CPU tensors), once a mixer
+layer (``test_k7_once_a_mixer_layer_outside_decode``).
 """
 
 import dataclasses
@@ -43,11 +45,11 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.models import transformer as tt
 from repro_torch.models.layers import FAR, blockwise_attention
 
-#: the attn-only architectures the port runs
+#: the architectures the port runs: attn-only, mamba and hymba
 ARCHS = ["llama3.2-1b", "deepseek-coder-33b", "gemma2-27b", "gemma3-27b",
-         "musicgen-large", "llama-3.2-vision-90b"]
-UNSUPPORTED = ["qwen2-moe-a2.7b", "qwen3-moe-235b-a22b", "falcon-mamba-7b",
-               "hymba-1.5b"]
+         "musicgen-large", "llama-3.2-vision-90b", "falcon-mamba-7b",
+         "hymba-1.5b"]
+UNSUPPORTED = ["qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: prompt, teacher-forced decode steps, cache length
 S, STEPS, SMAX = 8, 4, 16
@@ -80,6 +82,12 @@ def _close(got, want, tol, what):
 
 def _np(t):
     return t.detach().float().numpy()
+
+
+def _dtypes(cache):
+    """``{leaf: dtype name}`` of a port's (torch) or the JAX package's
+    (numpy or jax) cache."""
+    return {k: str(v.dtype).replace("torch.", "") for k, v in cache.items()}
 
 
 @pytest.mark.parametrize("reduced", [False, True])
@@ -147,8 +155,9 @@ def _strict(fn, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_matches_reference(arch, dtype):
-    """forward, prefill (logits and every cache leaf) and 4 teacher-forced
-    decode steps from the JAX package's own cache."""
+    """forward, prefill (logits and every cache leaf, its dtype included)
+    and 4 teacher-forced decode steps from the JAX package's own cache
+    (the cache's leaves and dtypes after them too)."""
     rcfg, params, tree = _reference(arch)
     cfg = get_config(arch).reduced()
     tol = TOL[dtype]
@@ -170,6 +179,7 @@ def test_matches_reference(arch, dtype):
     tl, tc = T.prefill(tp, cfg, toks[:, :S], smax=SMAX, enc=enc,
                        compute_dtype=tdt)
     _close(_np(tl), jl, tol, "prefill logits")
+    assert _dtypes(tc) == _dtypes(jc)
     tcn = T.cache_to_numpy(tc)
     assert sorted(tcn) == sorted(jc)
     for key in jc:
@@ -182,6 +192,7 @@ def test_matches_reference(arch, dtype):
         jl, jc = step(params, jnp.asarray(toks[:, t]), jc)
         tl, tc = T.decode_step(tp, cfg, toks[:, t], tc, compute_dtype=tdt)
         _close(_np(tl), jl, tol, f"decode step {t}")
+    assert _dtypes(tc) == _dtypes(jc)
     tcn = T.cache_to_numpy(tc)
     for key in jc:
         _close(tcn[key], jc[key], tol, f"decoded cache {key}")
@@ -271,6 +282,44 @@ def test_k6_only_on_fresh_self_attention(monkeypatch):
     for t in range(S, S + STEPS):
         lp, cache = T.decode_step(tp, cfg, toks[:, t], cache)
     assert len(spy.calls) == 2 * cfg.n_self_layers
+
+
+class _ScanSpy:
+    """Counts the selective-scan wrapper's calls the Mamba mixer makes."""
+
+    def __init__(self, monkeypatch):
+        from repro_torch.models import ssm
+        self.calls = []
+        real = ssm.mamba_scan
+
+        def spy(a, bx, c, **kw):
+            self.calls.append((a.shape, kw.get("h0") is not None,
+                               kw.get("return_state")))
+            return real(a, bx, c, **kw)
+        monkeypatch.setattr(ssm, "mamba_scan", spy)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_k7_once_a_mixer_layer_outside_decode(arch, monkeypatch):
+    """forward and prefill call the selective-scan wrapper once a Mamba
+    mixer layer (prefill from no state, its last state returned; forward
+    without it); decode_step never (the one-step recurrence).  K6 is
+    called once a hymba layer in forward and prefill, never in decode."""
+    cfg = get_config(arch).reduced()
+    tp = T.init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    toks, _ = _inputs(cfg)
+    scans, attn = _ScanSpy(monkeypatch), _Spy(monkeypatch)
+    L = cfg.n_layers
+    T.forward(tp, cfg, toks)
+    assert scans.calls == [((2, S + STEPS, 2 * cfg.d_model,
+                             cfg.ssm.d_state), False, False)] * L
+    _, cache = T.prefill(tp, cfg, toks[:, :S], smax=SMAX)
+    assert scans.calls[L:] == [((2, S, 2 * cfg.d_model, cfg.ssm.d_state),
+                                False, True)] * L
+    for t in range(S, S + STEPS):
+        _, cache = T.decode_step(tp, cfg, toks[:, t], cache)
+    assert len(scans.calls) == 2 * L
+    assert len(attn.calls) == (2 * L if cfg.mixer == "hymba" else 0)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -6,7 +6,9 @@ same requests; at float32 compute their greedy tokens are equal.  The
 JAX demo keeps one ``cache["len"]`` for every slot, set by the last
 refill, so it is right only when every prompt has one length and every
 request one ``max_new``: the port keeps that fault, and
-``test_uniform_len_fault_kept`` shows it.
+``test_uniform_len_fault_kept`` shows it.  The Mamba mixer reads no
+position, so falcon-mamba is served right at mixed lengths
+(``test_mamba_engine_mixed_prompt_lengths``).
 """
 
 import importlib
@@ -33,16 +35,16 @@ from repro_torch.serve.lm_engine import Request, ServeEngine
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _engines(slots, smax, **reduce):
-    rcfg = r_config("llama3.2-1b").reduced(**reduce)
-    cfg = get_config("llama3.2-1b").reduced(**reduce)
+def _engines(slots, smax, arch="llama3.2-1b", dtype="float32", **reduce):
+    rcfg = r_config(arch).reduced(**reduce)
+    cfg = get_config(arch).reduced(**reduce)
     params = r_init_params(rcfg, jax.random.PRNGKey(0))
     tp = params_from_reference(cfg, jax.tree.map(np.asarray, params),
                                device="cpu")
     ref = RServeEngine(rcfg, params, slots=slots, smax=smax,
-                       compute_dtype=jnp.float32)
+                       compute_dtype=getattr(jnp, dtype))
     port = ServeEngine(cfg, tp, slots=slots, smax=smax,
-                       compute_dtype=torch.float32, device="cpu")
+                       compute_dtype=getattr(torch, dtype), device="cpu")
     return cfg, ref, port
 
 
@@ -88,6 +90,50 @@ def test_uniform_len_fault_kept():
     assert _serve(alone, Request, prompts[:1], 6)[0] != outs[0]
 
 
+def test_mamba_engine_mixed_prompt_lengths():
+    """falcon-mamba at reduced widths, 2 slots, prompts of four lengths
+    and four ``max_new``: the port's tokens equal the JAX engine's, and
+    each request's equal its run alone (no position is read, so the one
+    ``len`` does not bind)."""
+    cfg, ref, port = _engines(2, 48, arch="falcon-mamba-7b")
+    rng = np.random.default_rng(2)
+    lens, news = (12, 5, 9, 7), (5, 3, 6, 4)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32) for n in lens]
+    for rid, (p, m) in enumerate(zip(prompts, news)):
+        port.submit(Request(rid, p, max_new=m))
+        ref.submit(RRequest(rid, p, max_new=m))
+    outs = port.run()
+    assert outs == ref.run()
+    assert [len(outs[r]) for r in range(4)] == list(news)
+    for rid, (p, m) in enumerate(zip(prompts, news)):
+        _, _, alone = _engines(2, 48, arch="falcon-mamba-7b")
+        alone.submit(Request(rid, p, max_new=m))
+        assert alone.run() == {rid: outs[rid]}, rid
+
+
+def test_hymba_cache_dtypes_follow_reference_engine():
+    """hymba in bfloat16: the engine's cache leaves have the JAX engine's
+    dtypes after a refill (the float32 conv window spliced into the
+    bfloat16 cache ``init_cache`` made) and after a decode step (the
+    window the mixer returned, float32)."""
+    cfg, ref, port = _engines(2, 32, arch="hymba-1.5b", dtype="bfloat16")
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab, 6,
+                                               dtype=np.int32)
+
+    def dtypes(cache):
+        return {k: str(v.dtype).replace("torch.", "")
+                for k, v in cache.items()}
+    for eng, req in ((port, Request), (ref, RRequest)):
+        eng.submit(req(0, prompt, max_new=3))
+        eng._refill()
+    assert dtypes(port.cache) == dtypes(ref.cache)
+    assert dtypes(port.cache)["ssm_conv"] == "bfloat16"
+    port.step()
+    ref.step()
+    assert dtypes(port.cache) == dtypes(ref.cache)
+    assert dtypes(port.cache)["ssm_conv"] == "float32"
+
+
 def test_deprecated_names_warn():
     import repro_torch.serve as serve
     with pytest.warns(DeprecationWarning, match="lm_engine"):
@@ -103,13 +149,26 @@ def test_deprecated_names_warn():
         from repro_torch.serve import ExploreService  # noqa: F401
 
 
+def _launch_cpu(*flags):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           "--device", "cpu", *flags], capture_output=True,
+                          text=True, env=env, timeout=300)
+
+
 def test_launch_serve_cpu():
     """``python -m repro_torch.launch.serve`` at the JAX launcher's
     defaults, on the CPU."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                          "--device", "cpu"], capture_output=True, text=True,
-                         env=env, timeout=300)
+    out = _launch_cpu()
+    assert out.returncode == 0, out.stderr
+    assert "served 8 requests, 128 tokens" in out.stdout
+    assert out.stdout.count("  req ") == 8
+
+
+def test_launch_serve_mamba_cpu():
+    """The launcher serving falcon-mamba (its reduced widths), on the
+    CPU."""
+    out = _launch_cpu("--arch", "falcon-mamba-7b")
     assert out.returncode == 0, out.stderr
     assert "served 8 requests, 128 tokens" in out.stdout
     assert out.stdout.count("  req ") == 8
