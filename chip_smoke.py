@@ -123,20 +123,24 @@ version:
    made on the card from seed 0) served by
    ``repro_torch.serve.lm_engine.ServeEngine`` (bfloat16 compute, 4
    slots, smax 1024) to 8 requests of 512-token prompts with 32 new
-   tokens each (two waves of 4); with K6's launch counter set to 0 just
+   tokens each (two waves of 4); first the model's prefill with K6
+   against the same prefill with K6's plain version swapped in
+   (``repro_torch.models.transformer.attention`` replaced here, not by a
+   switch in the package), by relative error norm of the logits and the
+   k/v cache: request 0 in float32 at full width, and every request's
+   solo prefill in bfloat16, where a planted fault (the causal mask one
+   key too far) must exceed the bound; then (``lm_served_report``, as in
+   phases 11 to 13) with K6's and K7's launch counters set to 0 just
    before and read just after, under ``torch.profiler``: one K6 launch a
    self-attention layer a prefill (128), the trace's count equal to the
    counter, no other kernel of this repository's sources launched, 32
-   tokens a request, all below the vocabulary; then the model's prefill
-   with K6 against the same prefill with K6's plain version swapped in
-   (``repro_torch.models.transformer.attention`` replaced here, not by a
-   switch in the package), by relative error norm of the logits and the
-   k/v cache: request 0 in float32 at full width, and every served
-   request in bfloat16, where a planted fault (the causal mask one key
-   too far) must exceed the bound; the served run's greedy tokens with
-   the plain version; the six attn-only architectures at ``.reduced()``
-   in float32, forward, prefill and 4 decode steps on the card == the
-   port's CPU run (``card_vs_cpu`` of ``tests/test_torch_lm_gpu.py``);
+   tokens a request, all below the vocabulary; then an untraced, timed
+   run in which every refill's spliced k/v must be bit-equal to that
+   request's solo prefill and its first token the solo prefill's
+   argmax; the served run's greedy tokens with the plain version; the
+   attn-mixer architectures (MoE included) at ``.reduced()`` in float32,
+   forward, prefill and 4 decode steps on the card == the port's CPU run
+   (``card_vs_cpu`` of ``tests/test_torch_lm_gpu.py``);
    ``python -m repro_torch.launch.serve`` at its defaults; and K6 alone
    at the served shape (1, 32 / 8, 512, 64, bfloat16, causal) beside its
    bound and ``scaled_dot_product_attention``.
@@ -155,18 +159,55 @@ version:
    (``repro_torch.models.ssm.mamba_scan`` replaced here, not by a switch
    in the package) by relative error norm of the logits, ``ssm_h`` and
    ``ssm_conv`` (a planted fault, each y_t read from h_(t-1), must exceed
-   the bound), and request 0 in float32 at full width; then a served run
-   in which every refill's spliced ``ssm_h`` and ``ssm_conv`` must be
-   bit-equal to that request's solo prefill and its first token the solo
-   prefill's argmax; then, with the launch counters set to 0 just before
-   and read just after, under ``torch.profiler``: one K7 launch a mixer
-   layer a prefill (512), the trace's count equal to the counter, no K6
-   and no other kernel of this repository's sources; the two Mamba
-   architectures (falcon-mamba-7b, hymba-1.5b) at ``.reduced()`` card ==
-   CPU (``card_vs_cpu``, K7 and K6 counted); and K7 alone at the served
-   shape (1, 512, 8192, 16) float32 with its final state, beside its
-   bound.  It prints the same serving numbers as phase 10;
-12. print one JSON line ``{"kernels": [...]}`` with launches, max |diff|,
+   the bound), and request 0 in float32 at full width; then, with the
+   launch counters set to 0 just before and read just after, under
+   ``torch.profiler``: one K7 launch a mixer layer a prefill (512), the
+   trace's count equal to the counter, no K6 and no other kernel of this
+   repository's sources; then a timed run in which every refill's
+   spliced ``ssm_h`` and ``ssm_conv`` must be bit-equal to that request's
+   solo prefill and its first token the solo prefill's argmax; the two
+   Mamba architectures (falcon-mamba-7b, hymba-1.5b) at ``.reduced()``
+   card == CPU (``card_vs_cpu``, K7 and K6 counted); and K7 alone at the
+   served shape (1, 512, 8192, 16) float32 with its final state, beside
+   its bound.  It prints the same serving numbers as phase 10;
+12. MoE serving at full width, the MoE MLP (``repro_torch.models.moe``)
+   on the serving path: qwen2-moe-a2.7b unreduced (24 layers, d_model
+   2048, 16 / 16 heads of 128, 60 experts padded to 64, top-4, d_expert
+   1408, 4 shared experts of 5632 in all, vocab 151936, untied head;
+   random weights made in bfloat16 on the card from seed 0: a float32
+   master and its bfloat16 copy would not fit) served by ``ServeEngine``
+   as phase 10 serves (4 slots, 8 requests of 512-token prompts, 32 new
+   tokens, smax 1024); every request's solo prefill with K6 against the
+   same prefill with K6's plain version (and the planted fault) by
+   relative error norm of the logits and the k/v cache, the (token,
+   choice) entries the MoE layers drop counted (there must be some);
+   every refill's spliced k/v bit-equal to the solo prefill and its first
+   token the solo prefill's argmax; with the launch counters set to 0
+   just before and read just after, under ``torch.profiler``: one K6
+   launch a layer a prefill (192), the trace's count equal, no K7 and no
+   other kernel of this repository's sources; one MoE layer at full
+   width in float32, card against CPU (``moe_layer_card_vs_cpu`` of
+   ``tests/test_torch_lm_gpu.py``: expert ids equal but at near ties,
+   drops equal, relative error norm at most 1e-4); K6 alone at the served
+   shape (1, 16 / 16, 512, 128) bfloat16 beside its bound and SDPA.  It
+   prints the serving numbers of phase 10;
+13. hybrid serving at full width: hymba-1.5b unreduced (32 layers,
+   d_model 1600, 25 / 5 heads of 64, d_inner 3200, d_state 16, window
+   1024, global layers 0, 15 and 31; random weights made on the card from
+   seed 0) served by ``ServeEngine`` (4 slots, 8 requests of 1536-token
+   prompts, longer than the window, so the window cuts keys in the 29
+   local layers in K6's prefill and in decode; 32 new tokens, smax 2048);
+   every request's solo prefill with K6 and with K7 each against the same
+   prefill with its plain version swapped in (and its planted fault), by
+   relative error norm of the logits and every cache leaf, in bfloat16,
+   and request 0 in float32 at full width; every refill's spliced k, v,
+   ``ssm_conv`` and ``ssm_h`` bit-equal to the solo prefill; one K6 and
+   one K7 launch a layer a prefill (256 each), the trace's counts equal,
+   no other kernel of this repository's sources; K6 alone at the served
+   shape (1, 25 / 5, 1536, 64) bfloat16 with the window beside its bound
+   and SDPA (with the window as a mask), and K7 alone at (1, 1536, 3200,
+   16) float32 with its final state beside its bound;
+14. print one JSON line ``{"kernels": [...]}`` with launches, max |diff|,
    times and bounds of K1-K7 (K1's row: its launches counted in the
    main path's trace, its ``ms`` K2 with zero steps, the kernel alone,
    against the bound of that launch's bytes, its ``timed`` key says so;
@@ -180,7 +221,8 @@ version:
    issued back to back (the host's pace), ``lm_served_ms`` its device
    time a launch in the served run's trace, ``lm_bound_ms`` the bound at
    that shape; K7's ``lm_*`` keys the same from phase 11, without a
-   library call), then ``{"ok": true, "device": {...}}`` as the last
+   library call; K6's ``moe_*`` keys the same from phase 12, and K6's and
+   K7's ``hymba_*`` keys from phase 13), then ``{"ok": true, "device": {...}}`` as the last
    line.
 
 Any failure exits nonzero; no phase catches an error and carries on
@@ -198,6 +240,7 @@ faster than ``torch.matmul`` or a kernel reads below its bound.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -305,6 +348,15 @@ def queued_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def free_device_memory() -> None:
+    """Frees what the last phase's models held on the card: an engine
+    whose refill is checked (``lm_splice_checked``) refers to itself, so
+    only the garbage collector frees it and the weights it holds."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -328,18 +380,21 @@ def device_kernels(run):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = run()
         torch.cuda.synchronize()
+    # the raw device events: building the profiler's FunctionEvent tree
+    # takes minutes over a served run's 500,000 launches
     kern, spans = {}, []
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            tr = ev.time_range
-            kern.setdefault(ev.name, []).append(tr.elapsed_us() / 1e3)
-            spans.append((tr.start, tr.end))
-    busy_us, end = 0.0, float("-inf")
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            t0 = ev.start_ns()
+            t1 = t0 + ev.duration_ns()
+            kern.setdefault(ev.name(), []).append((t1 - t0) / 1e6)
+            spans.append((t0, t1))
+    busy_ns, end = 0, float("-inf")
     for t0, t1 in sorted(spans):
         if t1 > end:
-            busy_us += t1 - max(t0, end)
+            busy_ns += t1 - max(t0, end)
             end = t1
-    return out, kern, busy_us / 1e3
+    return out, kern, busy_ns / 1e6
 
 
 def launches_of(kern: dict, name: str) -> int:
@@ -1049,6 +1104,241 @@ def serve_phase(apps, cfg, front, card_rows, card_fails, card) -> dict:
     return {"served_k": served_k, "solo_k": solo_k}
 
 
+def bit_equal(a, b) -> bool:
+    """Two tensors of one dtype and shape equal bit for bit (a NaN equal
+    to a NaN of the same bits)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    as_int = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return torch.equal(a.contiguous().view(as_int),
+                       b.contiguous().view(as_int))
+
+
+def lm_splice_checked(eng, solo: dict, refills: list):
+    """``eng`` with every refill checked: the slot's spliced cache rows
+    bit-equal to the request's solo prefill's (``solo[rid] = (first
+    token, {leaf: rows})``, each cast to the slot's dtype, as the splice
+    casts) and its first token that prefill's argmax; each checked
+    request's id is appended to ``refills``."""
+    real = eng._refill
+
+    def refill():
+        before = list(eng.active)
+        real()
+        for slot, req in enumerate(eng.active):
+            if req is None or req is before[slot]:
+                continue
+            tok, rows = solo[req.rid]
+            for key, want in rows.items():
+                got = eng.cache[key][:, slot]
+                if not bit_equal(got, want.to(got.dtype)):
+                    fail(f"slot {slot}'s {key} after request {req.rid}'s "
+                         f"refill differs from its solo prefill")
+            if req.out[0] != tok:
+                fail(f"request {req.rid}'s first token {req.out[0]} is not "
+                     f"its solo prefill's {tok}")
+            refills.append(req.rid)
+    eng._refill = refill
+    return eng
+
+
+def lm_serve(eng, timers=None):
+    """One served run of ``eng``'s queued requests: (tokens by request,
+    wall s).  With ``timers``, the wall of each prefill and decode step,
+    a synchronize around each, is appended to ``timers["prefill"]`` and
+    ``timers["decode"]``."""
+    import torch
+    from repro_torch.serve import lm_engine
+    real = (lm_engine.prefill, lm_engine.decode_step)
+    if timers is not None:
+        def timed(name, fn):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                timers[name].append(time.perf_counter() - t)
+                return out
+            return run
+        lm_engine.prefill = timed("prefill", real[0])
+        lm_engine.decode_step = timed("decode", real[1])
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs = eng.run()
+        torch.cuda.synchronize()
+        return outs, time.perf_counter() - t
+    finally:
+        lm_engine.prefill, lm_engine.decode_step = real
+
+
+def lm_served_report(name, card, make_engine, n_req, n_new, slots, kinds,
+                     vocab, solo) -> dict:
+    """The served runs of phases 12 and 13: ``make_engine()`` gives an
+    engine with the requests queued.  First, with the launch counters of
+    K6 and K7 set to 0 just before and read just after, under
+    ``torch.profiler``, each kernel of ``kinds`` (``{counter name: (the
+    kernel's name, launches expected)}``) must be launched as expected and
+    as often as the trace shows, no other kernel of this repository's
+    sources at all; then an untraced run, every refill checked against
+    ``solo`` (:func:`lm_splice_checked`), gives the prefill and decode
+    walls.  Prints the serving numbers; returns ``{"outs", "device_ms"
+    (each kernel's device ms in the traced run), "launches"}``."""
+    import torch
+    from repro_torch.kernels import flash_attention, mamba_scan
+    counters = {"k6": flash_attention, "k7": mamba_scan}
+    eng = make_engine()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    (outs, wall), kern, busy_ms = device_kernels(lambda: lm_serve(eng))
+    got = {k: c.launches for k, c in counters.items()}
+    del eng
+    for key, c in counters.items():
+        kname, want = kinds.get(key, (None, 0))
+        traced = launches_of(kern, kname) if kname else 0
+        print(f"{key.upper()} launches in the served run: {got[key]} "
+              f"(counter), {traced} (trace); expected {want}", flush=True)
+        if got[key] != want or traced != got[key]:
+            fail(f"{name}: {key.upper()} launched {got[key]} times (trace "
+                 f"{traced}), expected {want}")
+    ours = {kname for kname, _ in kinds.values()} | {"kv_split_kernel"}
+    others = {n: launches_of(kern, n) for n in source_kernels()
+              if n not in ours}
+    if any(others.values()):
+        fail(f"{name}: the served run launched other kernels of this "
+             f"repository: {others}")
+    if sorted(outs) != list(range(n_req)) or any(
+            len(v) != n_new or not all(0 <= t < vocab for t in v)
+            for v in outs.values()):
+        fail(f"{name}: served tokens malformed: "
+             f"{ {r: len(v) for r, v in outs.items()} }")
+    device_ms = {key: sum(sum(v) for k, v in kern.items() if kname in k)
+                 for key, (kname, _) in kinds.items()}
+    top = sorted(kern.items(), key=lambda kv: -sum(kv[1]))[:6]
+    print(f"device time in the traced served run: "
+          f"{sum(len(v) for v in kern.values())} launches; by kernel (ms, "
+          f"launches): "
+          + "; ".join(f"{k[:60]} {sum(v):.3f} ({len(v)})" for k, v in top),
+          flush=True)
+    timers, refills = {"prefill": [], "decode": []}, []
+    timed_outs, timed_wall = lm_serve(
+        lm_splice_checked(make_engine(), solo, refills), timers)
+    if sorted(refills) != list(range(n_req)):
+        fail(f"{name}: refills checked: {refills}")
+    print(f"every refill ({len(refills)}): the slot's "
+          f"{', '.join(sorted(solo[0][1]))} bit-equal to the request's solo "
+          f"prefill (cast to the slot's dtype, as the splice casts), its "
+          f"first token the solo prefill's argmax", flush=True)
+    prefill_ms = 1e3 * sum(timers["prefill"]) / len(timers["prefill"])
+    decode_ms = 1e3 * sum(timers["decode"]) / len(timers["decode"])
+    n_tok = sum(len(v) for v in outs.values())
+    print(card)
+    print(f"{name}: served {n_req} requests x {n_new} tokens ({n_tok}), "
+          f"{slots} slots: wall {timed_wall:.4f} s ({n_tok / timed_wall:.1f} "
+          f"tokens/s; prefill {prefill_ms:.4f} ms a request over "
+          f"{len(timers['prefill'])}, decode {decode_ms:.4f} ms a step of "
+          f"{slots} slots over {len(timers['decode'])}, each timed with a "
+          f"synchronize around it); the traced run: {wall:.4f} s, device "
+          f"busy {busy_ms:.2f} ms of it ({100 * busy_ms / (wall * 1e3):.2f}%; "
+          f"{100 * busy_ms / (timed_wall * 1e3):.2f}% of the untraced wall); "
+          + "; ".join(f"{k.upper()} {ms:.3f} ms on the device "
+                      f"({ms / max(got[k], 1):.4f} ms a launch)"
+                      for k, ms in device_ms.items())
+          + f"; tokens equal across the traced and the checked, timed runs: "
+          f"{outs == timed_outs} (at {time.perf_counter() - _T0:.1f} s)",
+          flush=True)
+    return {"outs": outs, "device_ms": device_ms, "launches": got}
+
+
+def k6_served_shape(dev, card, what, hq, hkv, s, d, window=0) -> dict:
+    """K6 alone at a served prefill's shape (1, hq/hkv, s, d) bfloat16
+    causal with ``window``, by CUDA events queued behind a sleep and
+    issued back to back, beside its bound (4·D a pair inside the masks at
+    989 TFLOP/s, or the bytes) and ``scaled_dot_product_attention`` on the
+    same inputs (with a boolean mask when windowed)."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention
+    from repro_torch.kernels import attention
+    gen = torch.Generator(device=dev).manual_seed(26)
+    q, k, v = (torch.randn((1, h, s, d), generator=gen, device=dev,
+                           dtype=torch.bfloat16) for h in (hq, hkv, hkv))
+    mask = None
+    if window:
+        i = torch.arange(s, device=dev)
+        mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+
+    def k6():
+        return attention(q, k, v, causal=True, window=window)
+
+    def sdpa():
+        if mask is None:
+            return scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                enable_gqa=True)
+        return scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                            enable_gqa=True)
+    # back to back at these sizes both calls are paced by their host work
+    call_ms, lib_call_ms = cuda_ms(k6, 50), cuda_ms(sdpa, 50)
+    ms, lib_ms = queued_ms(k6), queued_ms(sdpa)
+    pairs = sum(min(i + 1, window or s) for i in range(s))
+    ops = 4 * d * hq * pairs
+    byts = 2 * nbytes(q) + nbytes(k, v)
+    t_o, t_b = ops / BF16_OPS_PER_S * 1e3, byts / HBM_BYTES_PER_S * 1e3
+    bound_ms, by = (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
+    print(card)
+    print(f"K6 at (1, {hq}/{hkv}, {s}, {d}) bfloat16 causal, window "
+          f"{window} ({what}): {ms:.4f} ms a launch (CUDA events, queued "
+          f"behind a sleep) against a bound of {bound_ms:.5f} ms ({by}: "
+          f"{ops} operations at 989 TFLOP/s, {byts} bytes at 3.35 TB/s; "
+          f"{100 * bound_ms / ms:.2f}% of it), scaled_dot_product_attention "
+          f"{lib_ms:.4f} ms (K6 at {ms / lib_ms:.2f}x); issued back to back "
+          f"K6 {call_ms:.4f} ms a call, scaled_dot_product_attention "
+          f"{lib_call_ms:.4f} ms (the host's pace)", flush=True)
+    return {"ms": ms, "call_ms": call_ms, "bound_ms": bound_ms,
+            "library_ms": lib_ms, "library_call_ms": lib_call_ms}
+
+
+def k7_served_shape(dev, card, what, shape) -> dict:
+    """K7 alone at a served prefill's shape (B, S, D, N) float32, from no
+    state, with its final state, by CUDA events queued behind a sleep and
+    issued back to back, beside its bound (the bytes of a, bx, c, y and h
+    once each, or 4 operations a state a step at 67 TFLOP/s)."""
+    import torch
+    from repro_torch.kernels import mamba_scan
+    gen = torch.Generator(device=dev).manual_seed(27)
+    a = torch.rand(shape, generator=gen, device=dev) * 0.399 + 0.6
+    bx = torch.randn(shape, generator=gen, device=dev) * 0.1
+    c = torch.randn(shape[:2] + shape[3:], generator=gen, device=dev)
+
+    def k7():
+        return mamba_scan(a, bx, c, return_state=True)
+    y, h = k7()
+    call_ms, ms = cuda_ms(k7, 20), queued_ms(k7)
+    byts = nbytes(a, bx, c, y, h)
+    ops = 4 * a.numel()             # a*h, + bx, * c, + into y per state
+    t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    bound_ms, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+    print(card)
+    print(f"K7 at {shape} float32 with h_out ({what}): {ms:.4f} ms a launch "
+          f"(CUDA events, queued behind a sleep) against a bound of "
+          f"{bound_ms:.5f} ms ({by}: {byts} bytes at 3.35 TB/s, {ops} "
+          f"operations at 67 TFLOP/s; {100 * bound_ms / ms:.2f}% of it, "
+          f"{byts / ms / 1e9:.3f} TB/s); issued back to back {call_ms:.4f} "
+          f"ms a call", flush=True)
+    return {"ms": ms, "call_ms": call_ms, "bound_ms": bound_ms}
+
+
+def prefill_departure(got, want) -> tuple:
+    """Relative error norms of two prefills' (logits, cache): the
+    logits', and the largest over every cache leaf."""
+    return (rel_norms(got[0], want[0])[0],
+            max(rel_norms(got[1][k], want[1][k])[0]
+                for k in want[1] if k != "len"))
+
+
 #: phase 10: src/repro_torch/configs/llama3_2_1b.py unreduced, served as
 #: the JAX package's LM demo serves: 4 slots, two waves of 4 requests of
 #: one prompt length and one max_new (the only traffic on which the
@@ -1091,11 +1381,15 @@ def lm_run_with(attn, fn, *args, **kw):
         transformer.attention = real
 
 
-def lm_departure(got, want) -> tuple:
-    """Relative error norms of two prefills' (logits, cache): the logits',
-    and the largest of the k and v caches'."""
-    return (rel_norms(got[0], want[0])[0],
-            max(rel_norms(got[1][k], want[1][k])[0] for k in ("k", "v")))
+def lm_gpu_tests():
+    """``tests/test_torch_lm_gpu.py``, loaded by its path: the card ==
+    CPU checks live there once."""
+    import importlib.util
+    path = os.path.join(ROOT, "tests", "test_torch_lm_gpu.py")
+    spec = importlib.util.spec_from_file_location("test_torch_lm_gpu", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def lm_card_vs_cpu(dev, mixers) -> None:
@@ -1104,11 +1398,7 @@ def lm_card_vs_cpu(dev, mixers) -> None:
     ``card_vs_cpu`` on each (forward, prefill and 4 decode steps in
     float32, within its ``TOL``, every cache leaf, K6 and K7 counted; an
     assertion that fails ends the run)."""
-    import importlib.util
-    path = os.path.join(ROOT, "tests", "test_torch_lm_gpu.py")
-    spec = importlib.util.spec_from_file_location("test_torch_lm_gpu", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = lm_gpu_tests()
     from repro_torch.configs import get_config
     for arch in mod.ARCHS:
         cfg = get_config(arch).reduced()
@@ -1117,7 +1407,8 @@ def lm_card_vs_cpu(dev, mixers) -> None:
         err = mod.card_vs_cpu(arch, dev)
         print(f"{arch} reduced (mixer {cfg.mixer}, window {cfg.window}, "
               f"softcap {cfg.attn_softcap}, qk_norm {cfg.qk_norm}, cross "
-              f"layers {cfg.n_cross_layers}): forward, prefill and 4 decode "
+              f"layers {cfg.n_cross_layers}, MoE {cfg.moe is not None}): "
+              f"forward, prefill and 4 decode "
               f"steps card == CPU within {mod.TOL} (max |diff| {err:.3e})",
               flush=True)
 
@@ -1126,15 +1417,13 @@ def lm_phase(dev, card) -> dict:
     """Phase 10: Llama 3.2 1B at full width served by
     ``repro_torch.serve.lm_engine.ServeEngine`` on the card, K6 in every
     prefill's self-attention layers, counted under ``torch.profiler``;
-    K6 against its plain version inside the model; the attn-only
-    architectures card == CPU at reduced widths; the launcher; K6 alone
-    at the served shape."""
+    K6 against its plain version inside the model; every refill's k/v
+    equal to its solo prefill; the attn-only architectures card == CPU
+    at reduced widths; the launcher; K6 alone at the served shape."""
     import numpy as np
     import torch
-    from torch.nn.functional import scaled_dot_product_attention
     from repro_torch.configs import get_config
-    from repro_torch.kernels import attention, flash_attention
-    from repro_torch.models import init_params, prefill
+    from repro_torch.models import cast_for_compute, init_params, prefill
     from repro_torch.serve import lm_engine
 
     phase("10 LM serving at full width: Llama 3.2 1B through "
@@ -1150,136 +1439,78 @@ def lm_phase(dev, card) -> dict:
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
+    bf16 = cast_for_compute(params, cfg, torch.bfloat16)
     n_params = sum(p.numel() for p in params.parameters())
     torch.cuda.synchronize()
     print(f"{LM_ARCH}: {n_params} parameters ({n_params * 4 / 1e9:.3f} GB "
-          f"float32) made on the card in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+          f"float32, bfloat16 copies beside them) made on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab, (LM_REQUESTS, LM_PROMPT), dtype=np.int64)
-
-    def serve(timers=None):
-        """One served run of the requests: (tokens by request, wall s,
-        the engine's parameters with their bfloat16 copies)."""
-        eng = lm_engine.ServeEngine(cfg, params, slots=LM_SLOTS,
-                                    smax=LM_SMAX,
-                                    compute_dtype=torch.bfloat16, device=dev)
-        for rid in range(LM_REQUESTS):
-            eng.submit(lm_engine.Request(rid, prompts[rid], max_new=LM_NEW))
-        real = (lm_engine.prefill, lm_engine.decode_step)
-        if timers is not None:
-            def timed(name, fn):
-                def run(*a, **kw):
-                    torch.cuda.synchronize()
-                    t = time.perf_counter()
-                    out = fn(*a, **kw)
-                    torch.cuda.synchronize()
-                    timers[name].append(time.perf_counter() - t)
-                    return out
-                return run
-            lm_engine.prefill = timed("prefill", real[0])
-            lm_engine.decode_step = timed("decode", real[1])
-        try:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            outs = eng.run()
-            torch.cuda.synchronize()
-            return outs, time.perf_counter() - t, eng.params
-        finally:
-            lm_engine.prefill, lm_engine.decode_step = real
-
-    warm = serve()[0]
-    # the counted run, traced
-    torch.cuda.synchronize()
-    flash_attention.launches = 0
-    (outs, wall, bf16_params), kern, busy_ms = device_kernels(serve)
-    launches = flash_attention.launches
-    want = LM_REQUESTS * cfg.n_self_layers
-    traced = launches_of(kern, "flash_attention_kernel")
-    print(f"K6 launches in the served run: {launches} (counter), {traced} "
-          f"(trace); expected {want}", flush=True)
-    if launches != want or traced != launches:
-        fail(f"K6 launched {launches} times (trace {traced}) for {want} "
-             f"prefill self-attention layers")
-    others = {n: launches_of(kern, n) for n in source_kernels()
-              if n not in ("flash_attention_kernel", "kv_split_kernel")}
-    if any(others.values()):
-        fail(f"the served run launched other kernels of this repository: "
-             f"{others}")
-    if sorted(outs) != list(range(LM_REQUESTS)) or any(
-            len(v) != LM_NEW or not all(0 <= t < cfg.vocab for t in v)
-            for v in outs.values()):
-        fail(f"served tokens malformed: "
-             f"{ {r: len(v) for r, v in outs.items()} }")
-    k6_traced_ms = sum(sum(v) for k, v in kern.items()
-                       if "flash_attention_kernel" in k)
-    top = sorted(kern.items(), key=lambda kv: -sum(kv[1]))[:6]
-    print(f"device time in the traced served run: "
-          f"{sum(len(v) for v in kern.values())} launches; by kernel (ms, "
-          f"launches): "
-          + "; ".join(f"{k[:60]} {sum(v):.3f} ({len(v)})" for k, v in top),
-          flush=True)
-    timers = {"prefill": [], "decode": []}
-    timed_outs, timed_wall, _ = serve(timers)
-    prefill_ms = 1e3 * sum(timers["prefill"]) / len(timers["prefill"])
-    decode_ms = 1e3 * sum(timers["decode"]) / len(timers["decode"])
-    n_tok = sum(len(v) for v in outs.values())
-    print(card)
-    print(f"served {LM_REQUESTS} requests of {LM_PROMPT}-token prompts x "
-          f"{LM_NEW} tokens ({n_tok}), {LM_SLOTS} slots: wall "
-          f"{timed_wall:.4f} s ({n_tok / timed_wall:.1f} tokens/s; prefill "
-          f"{prefill_ms:.4f} ms a request over {len(timers['prefill'])}, "
-          f"decode {decode_ms:.4f} ms a step of {LM_SLOTS} slots over "
-          f"{len(timers['decode'])}, each timed with a synchronize around "
-          f"it); the traced run: {wall:.4f} s, device busy {busy_ms:.2f} ms "
-          f"of it ({100 * busy_ms / (wall * 1e3):.2f}%; "
-          f"{100 * busy_ms / (timed_wall * 1e3):.2f}% of the untraced "
-          f"wall), K6 {k6_traced_ms:.3f} ms on the device "
-          f"({k6_traced_ms / launches:.4f} ms a launch, "
-          f"{100 * k6_traced_ms / (timed_wall * 1e3):.2f}% of the untraced "
-          f"wall); tokens equal across the three runs: "
-          f"{warm == outs == timed_outs}", flush=True)
 
     # K6 against its plain version inside the model: float32, request 0
     toks = torch.as_tensor(prompts[:1], device=dev)
     run32 = dict(smax=LM_SMAX, compute_dtype=torch.float32)
-    rel32 = lm_departure(prefill(params, cfg, toks, **run32),
-                         lm_run_with(lm_plain_attention, prefill, params,
-                                     cfg, toks, **run32))
+    rel32 = prefill_departure(prefill(params, cfg, toks, **run32),
+                              lm_run_with(lm_plain_attention, prefill,
+                                          params, cfg, toks, **run32))
     print(f"float32 prefill of request 0 at full width, K6 against its "
           f"plain version: relative error norm logits {rel32[0]:.3e}, k/v "
           f"cache {rel32[1]:.3e} (limit {LM_F32_REL})", flush=True)
     if max(rel32) > LM_F32_REL:
         fail(f"the float32 prefill with K6 departs from the plain version: "
              f"{rel32} above {LM_F32_REL}")
-    # bfloat16: every served prefill, and a planted fault that must fail
+    # bfloat16: every request's solo prefill, and a planted fault that
+    # must fail; its k/v rows and first token kept for the splices
     run16 = dict(smax=LM_SMAX, compute_dtype=torch.bfloat16)
-    worst, fault_min = (0.0, 0.0), float("inf")
+    solo, worst, fault_min = {}, (0.0, 0.0), float("inf")
     for rid in range(LM_REQUESTS):
         toks = torch.as_tensor(prompts[rid:rid + 1], device=dev)
-        ref = lm_run_with(lm_plain_attention, prefill, bf16_params, cfg,
-                          toks, **run16)
-        got = lm_departure(prefill(bf16_params, cfg, toks, **run16), ref)
-        bad = lm_departure(lm_run_with(lm_faulty_attention, prefill,
-                                       bf16_params, cfg, toks, **run16), ref)
-        worst = (max(worst[0], got[0]), max(worst[1], got[1]))
-        fault_min = min(fault_min, max(bad))
-        if max(got) > LM_BF16_REL:
+        got = prefill(bf16, cfg, toks, **run16)
+        ref = lm_run_with(lm_plain_attention, prefill, bf16, cfg, toks,
+                          **run16)
+        bad = lm_run_with(lm_faulty_attention, prefill, bf16, cfg, toks,
+                          **run16)
+        dep, bad_dep = prefill_departure(got, ref), prefill_departure(bad,
+                                                                      ref)
+        worst = (max(worst[0], dep[0]), max(worst[1], dep[1]))
+        fault_min = min(fault_min, max(bad_dep))
+        if max(dep) > LM_BF16_REL:
             fail(f"the bfloat16 prefill of request {rid} with K6 departs "
-                 f"from the plain version: {got} above {LM_BF16_REL}")
-        if max(bad) <= LM_BF16_REL:
+                 f"from the plain version: {dep} above {LM_BF16_REL}")
+        if max(bad_dep) <= LM_BF16_REL:
             fail(f"the planted fault passes the bfloat16 bound on request "
-                 f"{rid}: {bad}")
-    plain_outs = lm_run_with(lm_plain_attention, serve)[0]
-    same = sum(a == b for r in outs for a, b in zip(outs[r], plain_outs[r]))
-    whole = sum(outs[r] == plain_outs[r] for r in outs)
+                 f"{rid}: {bad_dep}")
+        solo[rid] = (int(torch.argmax(got[0][0])),
+                     {k: got[1][k][:, 0] for k in ("k", "v")})
+        del got, ref, bad
     print(f"bfloat16 prefills, K6 against its plain version: largest "
           f"relative error norm logits {worst[0]:.3e}, k/v cache "
           f"{worst[1]:.3e} (limit {LM_BF16_REL}); the planted fault (causal "
-          f"mask one key too far) at least {fault_min:.3e}; greedy tokens "
-          f"with the plain version served: {same} of {n_tok} equal, "
-          f"{whole} of {LM_REQUESTS} requests whole", flush=True)
-    del params, bf16_params
+          f"mask one key too far) at least {fault_min:.3e}", flush=True)
+
+    def engine():
+        eng = lm_engine.ServeEngine(cfg, bf16, slots=LM_SLOTS, smax=LM_SMAX,
+                                    compute_dtype=torch.bfloat16, device=dev)
+        for rid in range(LM_REQUESTS):
+            eng.submit(lm_engine.Request(rid, prompts[rid], max_new=LM_NEW))
+        return eng
+
+    served = lm_served_report(
+        f"{LM_ARCH} ({LM_PROMPT}-token prompts)", card, engine, LM_REQUESTS,
+        LM_NEW, LM_SLOTS, {"k6": ("flash_attention_kernel",
+                                  LM_REQUESTS * cfg.n_self_layers)},
+        cfg.vocab, solo)
+    outs = served["outs"]
+    plain_outs = lm_run_with(lm_plain_attention,
+                             lambda: lm_serve(engine())[0])
+    same = sum(a == b for r in outs for a, b in zip(outs[r], plain_outs[r]))
+    whole = sum(outs[r] == plain_outs[r] for r in outs)
+    print(f"greedy tokens with the plain version served: {same} of "
+          f"{LM_REQUESTS * LM_NEW} equal, {whole} of {LM_REQUESTS} requests "
+          f"whole", flush=True)
+    del params, bf16, solo
+    free_device_memory()
 
     lm_card_vs_cpu(dev, ("attn",))
 
@@ -1294,43 +1525,17 @@ def lm_phase(dev, card) -> dict:
     print(f"python -m repro_torch.launch.serve: "
           f"{out.stdout.splitlines()[0]}", flush=True)
 
-    # K6 alone at the served prefill's shape, beside its bound and SDPA
-    gen = torch.Generator(device=dev).manual_seed(22)
-    q, k, v = (torch.randn((1, h, LM_PROMPT, hd), generator=gen,
-                           device=dev, dtype=torch.bfloat16)
-               for h in (cfg.n_heads, cfg.n_kv, cfg.n_kv))
-    def k6():
-        return attention(q, k, v, causal=True)
-
-    def sdpa():
-        return scaled_dot_product_attention(q, k, v, is_causal=True,
-                                            enable_gqa=True)
-    # back to back at this size both calls are paced by their host work
-    k6_call, sdpa_call = cuda_ms(k6, 100), cuda_ms(sdpa, 100)
-    k6_ms, sdpa_ms = queued_ms(k6), queued_ms(sdpa)
-    ops = 4 * hd * cfg.n_heads * LM_PROMPT * (LM_PROMPT + 1) // 2
-    byts = 2 * nbytes(q) + nbytes(k, v)
-    t_o, t_b = ops / BF16_OPS_PER_S * 1e3, byts / HBM_BYTES_PER_S * 1e3
-    bound_ms, by = (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
+    k6 = k6_served_shape(dev, card, LM_ARCH, cfg.n_heads, cfg.n_kv,
+                         LM_PROMPT, hd)
     peak = torch.cuda.max_memory_allocated()
-    print(card)
-    print(f"K6 at (1, {cfg.n_heads}/{cfg.n_kv}, {LM_PROMPT}, {hd}) bfloat16 "
-          f"causal: {k6_ms:.4f} ms a launch (CUDA events, queued behind a "
-          f"sleep) against a bound of {bound_ms:.5f} ms ({by}: {ops} "
-          f"operations at 989 TFLOP/s, {byts} bytes at 3.35 TB/s; "
-          f"{100 * bound_ms / k6_ms:.2f}% of it), "
-          f"scaled_dot_product_attention {sdpa_ms:.4f} ms (K6 at "
-          f"{k6_ms / sdpa_ms:.2f}x); issued back to back K6 {k6_call:.4f} "
-          f"ms a call, scaled_dot_product_attention {sdpa_call:.4f} ms (the "
-          f"host's pace); K6 in the served run {k6_traced_ms / launches:.4f} "
-          f"ms a launch (trace); peak device memory "
-          f"in phase 10 {peak} bytes ({peak / 2 ** 30:.2f} GiB; "
-          f"{(peak - held) / 2 ** 30:.2f} GiB above the {held} bytes the "
-          f"earlier phases hold)", flush=True)
-    return {"lm_launches": launches, "lm_ms": k6_ms,
-            "lm_call_ms": k6_call, "lm_served_ms": k6_traced_ms / launches,
-            "lm_bound_ms": bound_ms, "lm_library_ms": sdpa_ms,
-            "lm_library_call_ms": sdpa_call}
+    print(f"peak device memory in phase 10 {peak} bytes "
+          f"({peak / 2 ** 30:.2f} GiB; {(peak - held) / 2 ** 30:.2f} GiB "
+          f"above the {held} bytes the earlier phases hold)", flush=True)
+    n = served["launches"]["k6"]
+    return {"lm_launches": n, "lm_ms": k6["ms"], "lm_call_ms": k6["call_ms"],
+            "lm_served_ms": served["device_ms"]["k6"] / n,
+            "lm_bound_ms": k6["bound_ms"], "lm_library_ms": k6["library_ms"],
+            "lm_library_call_ms": k6["library_call_ms"]}
 
 
 #: phase 11: src/repro_torch/configs/falcon_mamba_7b.py unreduced, served
@@ -1382,14 +1587,6 @@ def mb_run_with(scan, fn, *args, **kw):
         ssm.mamba_scan = real
 
 
-def mb_departure(got, want) -> tuple:
-    """Relative error norms of two prefills' (logits, cache): the
-    logits', ``ssm_h``'s and ``ssm_conv``'s."""
-    return (rel_norms(got[0], want[0])[0],
-            rel_norms(got[1]["ssm_h"], want[1]["ssm_h"])[0],
-            rel_norms(got[1]["ssm_conv"], want[1]["ssm_conv"])[0])
-
-
 def mamba_phase(dev, card) -> dict:
     """Phase 11: falcon-mamba-7b at full width served by
     ``repro_torch.serve.lm_engine.ServeEngine`` on the card, K7 in every
@@ -1400,14 +1597,13 @@ def mamba_phase(dev, card) -> dict:
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention, mamba_scan
     from repro_torch.models import cast_for_compute, init_params, prefill
     from repro_torch.models.ssm import discretize
     from repro_torch.serve import lm_engine
 
     phase("11 Mamba serving at full width: falcon-mamba-7b through "
           "repro_torch.serve.lm_engine, prefill's selective scan on K7")
-    torch.cuda.empty_cache()
+    free_device_memory()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()        # by the earlier phases
     cfg = get_config(MB_ARCH)
@@ -1432,13 +1628,14 @@ def mamba_phase(dev, card) -> dict:
 
     # every request's solo prefill (K7), held against the plain version and
     # the planted fault; its state and first token kept for the splices
-    solo, worst, fault_min = {}, (0.0, 0.0, 0.0), float("inf")
+    solo, worst, fault_min = {}, (0.0, 0.0), float("inf")
     for rid, p in enumerate(prompts):
         toks = torch.as_tensor(p, device=dev)[None]
         got = prefill(bf16, cfg, toks, **run16)
         ref = mb_run_with(mb_plain_scan, prefill, bf16, cfg, toks, **run16)
         bad = mb_run_with(mb_faulty_scan, prefill, bf16, cfg, toks, **run16)
-        dep, bad_dep = mb_departure(got, ref), mb_departure(bad, ref)
+        dep, bad_dep = prefill_departure(got, ref), prefill_departure(bad,
+                                                                      ref)
         worst = tuple(max(w, g) for w, g in zip(worst, dep))
         fault_min = min(fault_min, max(bad_dep))
         if max(dep) > MB_BF16_REL:
@@ -1448,162 +1645,50 @@ def mamba_phase(dev, card) -> dict:
         if max(bad_dep) <= MB_BF16_REL:
             fail(f"the planted fault passes the bfloat16 bound on request "
                  f"{rid}: {bad_dep}")
-        solo[rid] = (int(torch.argmax(got[0][0])), got[1]["ssm_h"][:, 0],
-                     got[1]["ssm_conv"][:, 0])
+        solo[rid] = (int(torch.argmax(got[0][0])),
+                     {k: got[1][k][:, 0] for k in ("ssm_h", "ssm_conv")})
     print(f"bfloat16 prefills ({MB_PROMPTS} tokens), K7 against its plain "
           f"version: largest relative error norm logits {worst[0]:.3e}, "
-          f"ssm_h {worst[1]:.3e}, ssm_conv {worst[2]:.3e} (limit "
-          f"{MB_BF16_REL}); the planted fault (y_t from h_(t-1)) at least "
-          f"{fault_min:.3e} (at {time.perf_counter() - _T0:.1f} s)",
-          flush=True)
+          f"over ssm_h and ssm_conv {worst[1]:.3e} (limit {MB_BF16_REL}); "
+          f"the planted fault (y_t from h_(t-1)) at least {fault_min:.3e} "
+          f"(at {time.perf_counter() - _T0:.1f} s)", flush=True)
     # float32 at full width, request 0
     toks = torch.as_tensor(prompts[0], device=dev)[None]
     run32 = dict(smax=MB_SMAX, compute_dtype=torch.float32)
-    rel32 = mb_departure(prefill(params, cfg, toks, **run32),
-                         mb_run_with(mb_plain_scan, prefill, params, cfg,
-                                     toks, **run32))
+    rel32 = prefill_departure(prefill(params, cfg, toks, **run32),
+                              mb_run_with(mb_plain_scan, prefill, params,
+                                          cfg, toks, **run32))
     print(f"float32 prefill of request 0 at full width, K7 against its "
-          f"plain version: relative error norm logits {rel32[0]:.3e}, "
-          f"ssm_h {rel32[1]:.3e}, ssm_conv {rel32[2]:.3e} (limit "
-          f"{MB_F32_REL})", flush=True)
+          f"plain version: relative error norm logits {rel32[0]:.3e}, over "
+          f"ssm_h and ssm_conv {rel32[1]:.3e} (limit {MB_F32_REL})",
+          flush=True)
     if max(rel32) > MB_F32_REL:
         fail(f"the float32 prefill with K7 departs from the plain version: "
              f"{rel32} above {MB_F32_REL}")
 
-    def engine(check=False):
-        """A served run's engine, the requests queued; with ``check``,
-        every refill holds the slot's spliced state bit-equal to the
-        request's solo prefill and its first token to that prefill's."""
+    def engine():
         eng = lm_engine.ServeEngine(cfg, bf16, slots=MB_SLOTS, smax=MB_SMAX,
                                     compute_dtype=torch.bfloat16, device=dev)
         for rid, p in enumerate(prompts):
             eng.submit(lm_engine.Request(rid, p, max_new=MB_NEW))
-        if check:
-            real = eng._refill
-
-            def refill():
-                before = list(eng.active)
-                real()
-                for slot, req in enumerate(eng.active):
-                    if req is None or req is before[slot]:
-                        continue
-                    tok, h, conv = solo[req.rid]
-                    if not (same_bits(eng.cache["ssm_h"][:, slot], h) and
-                            torch.equal(eng.cache["ssm_conv"][:, slot],
-                                        conv)):
-                        fail(f"slot {slot}'s state after request "
-                             f"{req.rid}'s refill differs from its solo "
-                             f"prefill")
-                    if req.out[0] != tok:
-                        fail(f"request {req.rid}'s first token {req.out[0]} "
-                             f"is not its solo prefill's {tok}")
-                    refills.append(req.rid)
-            eng._refill = refill
         return eng
 
-    def serve(eng, timers=None):
-        """One served run: (tokens by request, wall s)."""
-        real = (lm_engine.prefill, lm_engine.decode_step)
-        if timers is not None:
-            def timed(name, fn):
-                def run(*a, **kw):
-                    torch.cuda.synchronize()
-                    t = time.perf_counter()
-                    out = fn(*a, **kw)
-                    torch.cuda.synchronize()
-                    timers[name].append(time.perf_counter() - t)
-                    return out
-                return run
-            lm_engine.prefill = timed("prefill", real[0])
-            lm_engine.decode_step = timed("decode", real[1])
-        try:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            outs = eng.run()
-            torch.cuda.synchronize()
-            return outs, time.perf_counter() - t
-        finally:
-            lm_engine.prefill, lm_engine.decode_step = real
-
-    refills = []
-    warm = serve(engine(check=True))[0]
-    if sorted(refills) != list(range(len(prompts))):
-        fail(f"refills checked: {refills}")
-    print(f"every refill ({len(refills)}): the slot's ssm_h and ssm_conv "
-          f"bit-equal to the request's solo prefill, its first token the "
-          f"solo prefill's argmax (at {time.perf_counter() - _T0:.1f} s)",
-          flush=True)
-    # the counted run, traced
-    eng = engine()
-    torch.cuda.synchronize()
-    flash_attention.launches = mamba_scan.launches = 0
-    (outs, wall), kern, busy_ms = device_kernels(lambda: serve(eng))
-    launches, k6 = mamba_scan.launches, flash_attention.launches
-    want = len(prompts) * cfg.n_layers
-    traced = launches_of(kern, "mamba_scan_kernel")
-    print(f"K7 launches in the served run: {launches} (counter), {traced} "
-          f"(trace); expected {want}; K6 {k6} (at "
-          f"{time.perf_counter() - _T0:.1f} s)", flush=True)
-    if launches != want or traced != launches or k6:
-        fail(f"K7 launched {launches} times (trace {traced}) for {want} "
-             f"prefill mixer layers; K6 {k6} times")
-    others = {n: launches_of(kern, n) for n in source_kernels()
-              if n != "mamba_scan_kernel"}
-    if any(others.values()):
-        fail(f"the served run launched other kernels of this repository: "
-             f"{others}")
-    if sorted(outs) != list(range(len(prompts))) or any(
-            len(v) != MB_NEW or not all(0 <= t < cfg.vocab for t in v)
-            for v in outs.values()):
-        fail(f"served tokens malformed: "
-             f"{ {r: len(v) for r, v in outs.items()} }")
-    k7_traced_ms = sum(sum(v) for k, v in kern.items()
-                       if "mamba_scan_kernel" in k)
-    top = sorted(kern.items(), key=lambda kv: -sum(kv[1]))[:6]
-    print(f"device time in the traced served run: "
-          f"{sum(len(v) for v in kern.values())} launches; by kernel (ms, "
-          f"launches): "
-          + "; ".join(f"{k[:60]} {sum(v):.3f} ({len(v)})" for k, v in top),
-          flush=True)
-    timers = {"prefill": [], "decode": []}
-    timed_outs, timed_wall = serve(engine(), timers)
-    prefill_ms = 1e3 * sum(timers["prefill"]) / len(timers["prefill"])
-    decode_ms = 1e3 * sum(timers["decode"]) / len(timers["decode"])
-    n_tok = sum(len(v) for v in outs.values())
-    print(card)
-    print(f"served {len(prompts)} requests of {MB_PROMPTS}-token prompts x "
-          f"{MB_NEW} tokens ({n_tok}), {MB_SLOTS} slots: wall "
-          f"{timed_wall:.4f} s ({n_tok / timed_wall:.1f} tokens/s; prefill "
-          f"{prefill_ms:.4f} ms a request over {len(timers['prefill'])}, "
-          f"decode {decode_ms:.4f} ms a step of {MB_SLOTS} slots over "
-          f"{len(timers['decode'])}, each timed with a synchronize around "
-          f"it); the traced run: {wall:.4f} s, device busy {busy_ms:.2f} ms "
-          f"of it ({100 * busy_ms / (wall * 1e3):.2f}%; "
-          f"{100 * busy_ms / (timed_wall * 1e3):.2f}% of the untraced "
-          f"wall), K7 {k7_traced_ms:.3f} ms on the device "
-          f"({k7_traced_ms / launches:.4f} ms a launch, "
-          f"{100 * k7_traced_ms / (timed_wall * 1e3):.2f}% of the untraced "
-          f"wall); tokens equal across the three runs: "
-          f"{warm == outs == timed_outs} (at {time.perf_counter() - _T0:.1f} "
-          f"s)", flush=True)
-    del params, bf16, solo, eng
+    served = lm_served_report(
+        f"{MB_ARCH} ({MB_PROMPTS}-token prompts)", card, engine,
+        len(prompts), MB_NEW, MB_SLOTS,
+        {"k7": ("mamba_scan_kernel", len(prompts) * cfg.n_layers)},
+        cfg.vocab, solo)
+    del params, bf16, solo
+    free_device_memory()
 
     lm_card_vs_cpu(dev, ("mamba", "hymba"))
 
-    # K7 alone at the served prefill's shape, from no state, with h_out
-    gen = torch.Generator(device=dev).manual_seed(23)
     shape = (1, MB_PROMPTS[0], cfg.ssm.expand * cfg.d_model,
              cfg.ssm.d_state)
-    a = torch.rand(shape, generator=gen, device=dev) * 0.399 + 0.6
-    bx = torch.randn(shape, generator=gen, device=dev) * 0.1
-    c = torch.randn(shape[:2] + shape[3:], generator=gen, device=dev)
-
-    def k7():
-        return mamba_scan(a, bx, c, return_state=True)
-    y, h = k7()
-    k7_call, k7_ms = cuda_ms(k7, 20), queued_ms(k7)
+    k7 = k7_served_shape(dev, card, MB_ARCH, shape)
     # what builds K7's inputs in the mixer: the discretization, at the
     # served shape in bfloat16 compute (dt, x (1, S, di), B (1, S, N))
+    gen = torch.Generator(device=dev).manual_seed(23)
     dt_, x_ = (torch.randn(shape[:3], generator=gen, device=dev,
                            dtype=torch.bfloat16) for _ in range(2))
     b_ = torch.randn(shape[:2] + shape[3:], generator=gen, device=dev,
@@ -1611,27 +1696,430 @@ def mamba_phase(dev, card) -> dict:
     a_log = torch.log(torch.arange(1, shape[3] + 1, device=dev,
                                    dtype=torch.float32)).expand(shape[2:])
     disc_ms = queued_ms(lambda: discretize(dt_, x_, b_, -torch.exp(a_log)))
-    byts = nbytes(a, bx, c, y, h)
-    ops = 4 * a.numel()             # a*h, + bx, * c, + into y per state
-    t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    bound_ms, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
     peak = torch.cuda.max_memory_allocated()
-    print(card)
-    print(f"K7 at {shape} float32 with h_out: {k7_ms:.4f} ms a launch (CUDA "
-          f"events, queued behind a sleep) against a bound of "
-          f"{bound_ms:.5f} ms ({by}: {byts} bytes at 3.35 TB/s, {ops} "
-          f"operations at 67 TFLOP/s; {100 * bound_ms / k7_ms:.2f}% of it, "
-          f"{byts / k7_ms / 1e9:.3f} TB/s); issued back to back "
-          f"{k7_call:.4f} ms a call; the discretization that builds its "
-          f"a and bx (models.ssm.discretize, bfloat16 dt, x, B) "
-          f"{disc_ms:.4f} ms (queued), a layer; in the served run "
-          f"{k7_traced_ms / launches:.4f} ms a launch (trace, prompts of "
-          f"257 to 512 tokens); peak device memory in phase 11 {peak} bytes "
+    print(f"the discretization that builds K7's a and bx "
+          f"(models.ssm.discretize, bfloat16 dt, x, B) at that shape: "
+          f"{disc_ms:.4f} ms (queued) a layer; peak device memory in phase "
+          f"11 {peak} bytes ({peak / 2 ** 30:.2f} GiB; "
+          f"{(peak - held) / 2 ** 30:.2f} GiB above the {held} bytes the "
+          f"earlier phases hold)", flush=True)
+    n = served["launches"]["k7"]
+    return {"lm_launches": n, "lm_ms": k7["ms"], "lm_call_ms": k7["call_ms"],
+            "lm_served_ms": served["device_ms"]["k7"] / n,
+            "lm_bound_ms": k7["bound_ms"]}
+
+
+class PinnedRouting:
+    """A stand-in for the MoE MLP's router
+    (``repro_torch.models.moe.router_topk``) that records the expert ids
+    of one prefill and makes the next prefills take the same ids, in the
+    same order of calls, each weighted by its own probabilities: so two
+    prefills that differ in one kernel are compared through the model's
+    continuous paths.  The router's choice is discrete: left free, a
+    bfloat16 difference of a few ulps in attention moves some tokens to
+    other experts, and their outputs differ wholly.  ``flips`` counts the
+    tokens whose own top-k differs from the pinned ids."""
+
+    def __init__(self):
+        self.ids, self.replay, self.flips = [], None, 0
+
+    def __call__(self, x, w_router, moe):
+        import torch
+        from repro_torch.models import moe as moe_mod
+        vals, idx = self.real(x, w_router, moe)
+        if self.replay is None:
+            self.ids.append(idx)
+            return vals, idx
+        pinned = self.ids[self.replay]
+        self.replay += 1
+        self.flips += int((pinned != idx).any(-1).sum())
+        logits = torch.matmul(x.float(), w_router.float())
+        logits[..., moe.n_experts:] = moe_mod.PAD_LOGIT
+        vals = torch.gather(torch.softmax(logits, -1), -1, pinned)
+        if moe.router_norm_topk:
+            vals = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
+        return vals, pinned
+
+    def run(self, fn, *args, replay: bool, **kw):
+        """``fn(*args, **kw)`` with the router pinned: the ids recorded
+        (``replay`` false, after forgetting any) or replayed."""
+        from repro_torch.models import moe as moe_mod
+        self.real = moe_mod.router_topk
+        if replay:
+            self.replay = 0
+        else:
+            self.ids, self.replay = [], None
+        moe_mod.router_topk = self
+        try:
+            return fn(*args, **kw)
+        finally:
+            moe_mod.router_topk = self.real
+
+
+#: phase 12: src/repro_torch/configs/qwen2_moe_a2_7b.py unreduced, made in
+#: bfloat16 (a float32 master and its bfloat16 copy would not fit 80 GB),
+#: served as phase 10 serves Llama 3.2 1B
+MOE_ARCH, MOE_SLOTS, MOE_SMAX = "qwen2-moe-a2.7b", 4, 1024
+MOE_REQUESTS, MOE_PROMPT, MOE_NEW = 8, 512, 32
+
+
+def moe_phase(dev, card) -> dict:
+    """Phase 12: qwen2-moe-a2.7b at full width served by
+    ``repro_torch.serve.lm_engine.ServeEngine`` on the card, the MoE MLP
+    in every layer and K6 in every prefill's attention, counted under
+    ``torch.profiler``; K6 against its plain version inside the model;
+    every refill's k/v equal to its solo prefill; one MoE layer card
+    against CPU; K6 alone at the served shape."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, prefill
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer
+    from repro_torch.serve import lm_engine
+
+    phase("12 MoE serving at full width: qwen2-moe-a2.7b through "
+          "repro_torch.serve.lm_engine, the MoE MLP, prefill attention on "
+          "K6")
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()        # by the earlier phases
+    cfg = get_config(MOE_ARCH)
+    moe = cfg.moe
+    widths = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv,
+              cfg.head_dim_of, cfg.d_ff, cfg.vocab, cfg.tie_embeddings,
+              moe.n_experts, moe.n_experts_padded, moe.top_k, moe.d_expert,
+              moe.n_shared, moe.d_shared)
+    if widths != (24, 2048, 16, 16, 128, 0, 151936, False, 60, 64, 4, 1408,
+                  4, 5632):
+        fail(f"{MOE_ARCH} widths {widths} are not the published ones")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16, device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    torch.cuda.synchronize()
+    print(f"{MOE_ARCH}: {n_params} parameters ({n_params * 2 / 1e9:.3f} GB "
+          f"bfloat16, made in bfloat16: no float32 master) made on the card "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (MOE_REQUESTS, MOE_PROMPT), dtype=np.int64)
+    run16 = dict(smax=MOE_SMAX, compute_dtype=torch.bfloat16)
+    cap = moe_mod.capacity_of(MOE_PROMPT, moe)
+
+    # the drops of each served prefill's MoE layers, counted on the side
+    dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    real_moe, real_router = transformer.moe_mlp, moe_mod.router_topk
+
+    def counting_moe(x, mp, m):
+        nonlocal dropped
+        ids = real_router(x, mp["w_router"], m)[1]
+        keep = moe_mod.dispatch(ids, mp["w_router"].shape[1],
+                                moe_mod.capacity_of(x.shape[1], m))[1]
+        dropped = dropped + (~keep).sum()
+        return real_moe(x, mp, m)
+
+    # every request's solo prefill (K6), held against the plain version
+    # and the planted fault, each with the solo prefill's expert choices
+    # (PinnedRouting); its k/v rows and first token kept
+    solo, worst, fault_min = {}, (0.0, 0.0), float("inf")
+    pin = PinnedRouting()
+    flips = {"plain": 0, "fault": 0}
+    for rid in range(MOE_REQUESTS):
+        toks = torch.as_tensor(prompts[rid:rid + 1], device=dev)
+        transformer.moe_mlp = counting_moe
+        try:
+            got = pin.run(prefill, params, cfg, toks, replay=False, **run16)
+        finally:
+            transformer.moe_mlp = real_moe
+        for what, attn in (("plain", lm_plain_attention),
+                           ("fault", lm_faulty_attention)):
+            pin.flips = 0
+            out = pin.run(lm_run_with, attn, prefill, params, cfg, toks,
+                          replay=True, **run16)
+            flips[what] += pin.flips
+            if what == "plain":
+                ref = out
+            else:
+                bad = out
+        dep, bad_dep = prefill_departure(got, ref), prefill_departure(bad,
+                                                                      ref)
+        worst = (max(worst[0], dep[0]), max(worst[1], dep[1]))
+        fault_min = min(fault_min, max(bad_dep))
+        if max(dep) > LM_BF16_REL:
+            fail(f"the bfloat16 prefill of request {rid} with K6 departs "
+                 f"from the plain version: {dep} above {LM_BF16_REL}")
+        if max(bad_dep) <= LM_BF16_REL:
+            fail(f"the planted fault passes the bfloat16 bound on request "
+                 f"{rid}: {bad_dep}")
+        solo[rid] = (int(torch.argmax(got[0][0])),
+                     {k: got[1][k][:, 0] for k in ("k", "v")})
+        del got, ref, bad
+    dropped = int(dropped)
+    entries = MOE_REQUESTS * cfg.n_layers * MOE_PROMPT * moe.top_k
+    print(f"bfloat16 prefills, K6 against its plain version, the expert "
+          f"choices pinned to the K6 prefill's: largest relative error norm "
+          f"logits {worst[0]:.3e}, k/v cache {worst[1]:.3e} (limit "
+          f"{LM_BF16_REL}); the planted fault (causal mask one key too far) "
+          f"at least {fault_min:.3e}; (token, layer) choices that would "
+          f"have moved, left free: {flips['plain']} with the plain "
+          f"version, {flips['fault']} with the fault, of "
+          f"{MOE_REQUESTS * cfg.n_layers * MOE_PROMPT}; the MoE "
+          f"layers dropped {dropped} of {entries} (token, choice) entries "
+          f"(capacity {cap} an expert a row) (at "
+          f"{time.perf_counter() - _T0:.1f} s)", flush=True)
+    if not 0 < dropped < entries:
+        fail(f"{dropped} of {entries} entries dropped: random routing at "
+             f"capacity {cap} must overflow some experts, not all")
+
+    def engine():
+        eng = lm_engine.ServeEngine(cfg, params, slots=MOE_SLOTS,
+                                    smax=MOE_SMAX,
+                                    compute_dtype=torch.bfloat16, device=dev)
+        for rid in range(MOE_REQUESTS):
+            eng.submit(lm_engine.Request(rid, prompts[rid],
+                                         max_new=MOE_NEW))
+        return eng
+
+    want = MOE_REQUESTS * cfg.n_layers
+    served = lm_served_report(
+        f"{MOE_ARCH} ({MOE_PROMPT}-token prompts)", card, engine,
+        MOE_REQUESTS, MOE_NEW, MOE_SLOTS,
+        {"k6": ("flash_attention_kernel", want)}, cfg.vocab, solo)
+    del params, solo
+    free_device_memory()
+
+    # one MoE layer at full width in float32, card against CPU
+    mod = lm_gpu_tests()
+    near, differ, drops, rel = mod.moe_layer_card_vs_cpu(MOE_ARCH,
+                                                         MOE_PROMPT, dev)
+    print(f"one {MOE_ARCH} MoE layer at full width, float32, a "
+          f"{MOE_PROMPT}-token input, card against CPU: {near} tokens with "
+          f"the k-th and (k+1)-th router probabilities within "
+          f"{mod.MOE_TIE}, {differ} tokens whose expert ids differ, drops "
+          f"equal ({drops} of {MOE_PROMPT * moe.top_k} entries), output "
+          f"relative error norm {rel:.3e} (limit {mod.TOL})", flush=True)
+
+    k6 = k6_served_shape(dev, card, MOE_ARCH, cfg.n_heads, cfg.n_kv,
+                         MOE_PROMPT, cfg.head_dim_of)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"peak device memory in phase 12 {peak} bytes "
           f"({peak / 2 ** 30:.2f} GiB; {(peak - held) / 2 ** 30:.2f} GiB "
           f"above the {held} bytes the earlier phases hold)", flush=True)
-    return {"lm_launches": launches, "lm_ms": k7_ms, "lm_call_ms": k7_call,
-            "lm_served_ms": k7_traced_ms / launches,
-            "lm_bound_ms": bound_ms}
+    n = served["launches"]["k6"]
+    return {"moe_launches": n, "moe_ms": k6["ms"],
+            "moe_call_ms": k6["call_ms"],
+            "moe_served_ms": served["device_ms"]["k6"] / n,
+            "moe_bound_ms": k6["bound_ms"],
+            "moe_library_ms": k6["library_ms"],
+            "moe_library_call_ms": k6["library_call_ms"]}
+
+
+def lm_roundoff_attention(q, k, v, **kw):
+    """The plain version with each output element times ``1 + 2^-9 z``,
+    z standard normal (the same draws on every call of one shape): a
+    bfloat16 roundoff (2^-9 is its unit roundoff) more or less on
+    attention's output."""
+    import torch
+    out = lm_plain_attention(q, k, v, **kw)
+    gen = torch.Generator(device=out.device).manual_seed(0)
+    z = torch.randn(out.shape, generator=gen, device=out.device)
+    return (out.float() * (1 + 2.0 ** -9 * z)).to(out.dtype)
+
+
+class K6CallCheck:
+    """Stands in for the model's flash-attention wrapper
+    (``repro_torch.models.transformer.attention``): runs it, and on the
+    same inputs K6's plain version and the planted fault; keeps the
+    largest relative error norm of the wrapper's output against the plain
+    version's and the smallest of the fault's, over ``n`` calls."""
+
+    def __init__(self):
+        from repro_torch.models import transformer
+        self.real = transformer.attention
+        self.n, self.worst, self.fault_min = 0, 0.0, float("inf")
+
+    def __call__(self, q, k, v, **kw):
+        out = self.real(q, k, v, **kw)
+        ref = lm_plain_attention(q, k, v, **kw)
+        self.worst = max(self.worst, rel_norms(out, ref)[0])
+        self.fault_min = min(self.fault_min, rel_norms(
+            lm_faulty_attention(q, k, v, **kw), ref)[0])
+        self.n += 1
+        return out
+
+
+#: phase 13's bound on K6's bfloat16 prefill against the plain version's,
+#: in units of the departure ``lm_roundoff_attention`` gives: over 32
+#: hymba layers one bfloat16 roundoff on attention's output grows to a
+#: departure of 0.07 in the last layer's keys and 0.09 in the logits, past
+#: LM_BF16_REL, whichever attention computes it
+HY_ROUNDOFF_X = 2.0
+
+#: phase 13: src/repro_torch/configs/hymba_1_5b.py unreduced: 8 requests of
+#: one prompt length (hymba has attention: the JAX demo's one cache length
+#: needs one), longer than the 1024-token window, so the window cuts keys
+#: in the 29 local layers, in K6's prefill and in decode's attention
+HY_ARCH, HY_SLOTS, HY_SMAX = "hymba-1.5b", 4, 2048
+HY_REQUESTS, HY_PROMPT, HY_NEW = 8, 1536, 32
+
+
+def hymba_phase(dev, card) -> tuple:
+    """Phase 13: hymba-1.5b at full width served by ``ServeEngine`` on the
+    card, K6 and K7 in every prefill layer, counted under
+    ``torch.profiler``; each against its plain version inside the model
+    (float32 at full width and every bfloat16 prefill, with a planted
+    fault each); every refill's k, v, ``ssm_conv`` and ``ssm_h`` equal to
+    its solo prefill; K6 and K7 alone at the served shape.  Returns the
+    K6 and the K7 keys of the kernels line."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import cast_for_compute, init_params, prefill
+    from repro_torch.serve import lm_engine
+
+    phase("13 hybrid serving at full width: hymba-1.5b through "
+          "repro_torch.serve.lm_engine, prefill attention on K6 and the "
+          "selective scan on K7")
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    cfg = get_config(HY_ARCH)
+    kinds = cfg.layer_kinds()
+    widths = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv,
+              cfg.head_dim_of, cfg.ssm.expand * cfg.d_model,
+              cfg.ssm.d_state, cfg.window, cfg.d_ff, cfg.vocab,
+              tuple(i for i, g in enumerate(kinds) if g))
+    if widths != (32, 1600, 25, 5, 64, 3200, 16, 1024, 5504, 32001,
+                  (0, 15, 31)):
+        fail(f"{HY_ARCH} widths {widths} are not the published ones")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    bf16 = cast_for_compute(params, cfg, torch.bfloat16)
+    n_params = sum(p.numel() for p in params.parameters())
+    torch.cuda.synchronize()
+    print(f"{HY_ARCH}: {n_params} parameters ({n_params * 4 / 1e9:.3f} GB "
+          f"float32, bfloat16 copies of the matrices beside them) made on "
+          f"the card in {time.perf_counter() - t0:.2f} s", flush=True)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (HY_REQUESTS, HY_PROMPT), dtype=np.int64)
+    run16 = dict(smax=HY_SMAX, compute_dtype=torch.bfloat16)
+    swaps = {"K6": (lm_run_with, lm_plain_attention, lm_faulty_attention),
+             "K7": (mb_run_with, mb_plain_scan, mb_faulty_scan)}
+
+    # every request's solo prefill, K6's calls held one by one against the
+    # plain version and the planted fault on the inputs the model gives
+    # them; the whole prefill held against the plain versions swapped in:
+    # K7's at LM_BF16_REL, K6's at twice the departure a bfloat16 roundoff
+    # on attention's output gives (HY_ROUNDOFF_X); the cache rows and first
+    # token kept for the splices
+    solo, calls = {}, K6CallCheck()
+    worst = {k: (0.0, 0.0) for k in swaps}
+    fault_min = {k: float("inf") for k in swaps}
+    limit = {"K7": LM_BF16_REL}
+    yard_max = 0.0
+    for rid in range(HY_REQUESTS):
+        toks = torch.as_tensor(prompts[rid:rid + 1], device=dev)
+        got = lm_run_with(calls, prefill, bf16, cfg, toks, **run16)
+        for kname, (run_with, plain, faulty) in swaps.items():
+            ref = run_with(plain, prefill, bf16, cfg, toks, **run16)
+            if kname == "K6":
+                yard = max(prefill_departure(run_with(
+                    lm_roundoff_attention, prefill, bf16, cfg, toks,
+                    **run16), ref))
+                yard_max = max(yard_max, yard)
+                limit["K6"] = HY_ROUNDOFF_X * yard
+            dep = prefill_departure(got, ref)
+            bad = prefill_departure(run_with(faulty, prefill, bf16, cfg,
+                                             toks, **run16), ref)
+            worst[kname] = tuple(max(w, g) for w, g in zip(worst[kname],
+                                                            dep))
+            fault_min[kname] = min(fault_min[kname], max(bad))
+            if max(dep) > limit[kname]:
+                fail(f"the bfloat16 prefill of request {rid} with {kname} "
+                     f"departs from the plain version: {dep} above "
+                     f"{limit[kname]}")
+            if max(bad) <= limit[kname]:
+                fail(f"{kname}'s planted fault passes the bfloat16 bound on "
+                     f"request {rid}: {bad} (limit {limit[kname]})")
+            del ref
+        solo[rid] = (int(torch.argmax(got[0][0])),
+                     {k: v[:, 0] for k, v in got[1].items() if k != "len"})
+        del got
+    if not (calls.n == HY_REQUESTS * cfg.n_layers
+            and calls.worst <= LM_BF16_REL < calls.fault_min):
+        fail(f"K6's {calls.n} calls in the bfloat16 prefills against its "
+             f"plain version on the same inputs: largest relative error "
+             f"norm {calls.worst}, the planted fault's smallest "
+             f"{calls.fault_min} (limit {LM_BF16_REL})")
+    print(f"bfloat16 prefills ({HY_PROMPT} tokens), K6's {calls.n} calls "
+          f"each against its plain version on the inputs the model gave "
+          f"it: largest relative error norm {calls.worst:.3e} (limit "
+          f"{LM_BF16_REL}), the planted fault at least "
+          f"{calls.fault_min:.3e}; the whole prefill, K6 against the plain "
+          f"version swapped in: logits {worst['K6'][0]:.3e}, over the cache "
+          f"leaves {worst['K6'][1]:.3e}, where a relative 2^-9 Gaussian "
+          f"(a bfloat16 roundoff) on the plain version's output departs by "
+          f"up to {yard_max:.3e} (limit {HY_ROUNDOFF_X} times that, request "
+          f"by request), the planted fault at least "
+          f"{fault_min['K6']:.3e}", flush=True)
+    print(f"bfloat16 prefills ({HY_PROMPT} tokens), K7 against its plain "
+          f"version: largest relative error norm logits "
+          f"{worst['K7'][0]:.3e}, over the cache leaves "
+          f"{worst['K7'][1]:.3e} (limit {LM_BF16_REL}); its planted fault "
+          f"at least {fault_min['K7']:.3e}", flush=True)
+    # float32 at full width, request 0
+    toks = torch.as_tensor(prompts[:1], device=dev)
+    run32 = dict(smax=HY_SMAX, compute_dtype=torch.float32)
+    got = prefill(params, cfg, toks, **run32)
+    for kname, (run_with, plain, _) in swaps.items():
+        rel32 = prefill_departure(got, run_with(plain, prefill, params, cfg,
+                                                toks, **run32))
+        print(f"float32 prefill of request 0 at full width, {kname} "
+              f"against its plain version: relative error norm logits "
+              f"{rel32[0]:.3e}, over the cache leaves {rel32[1]:.3e} "
+              f"(limit {LM_F32_REL})", flush=True)
+        if max(rel32) > LM_F32_REL:
+            fail(f"the float32 prefill with {kname} departs from the plain "
+                 f"version: {rel32} above {LM_F32_REL}")
+    del got
+
+    def engine():
+        eng = lm_engine.ServeEngine(cfg, bf16, slots=HY_SLOTS, smax=HY_SMAX,
+                                    compute_dtype=torch.bfloat16, device=dev)
+        for rid in range(HY_REQUESTS):
+            eng.submit(lm_engine.Request(rid, prompts[rid], max_new=HY_NEW))
+        return eng
+
+    want = HY_REQUESTS * cfg.n_layers
+    served = lm_served_report(
+        f"{HY_ARCH} ({HY_PROMPT}-token prompts)", card, engine, HY_REQUESTS,
+        HY_NEW, HY_SLOTS, {"k6": ("flash_attention_kernel", want),
+                           "k7": ("mamba_scan_kernel", want)}, cfg.vocab,
+        solo)
+    del params, bf16, solo
+    free_device_memory()
+
+    k6 = k6_served_shape(dev, card, f"{HY_ARCH}, a local layer",
+                         cfg.n_heads, cfg.n_kv, HY_PROMPT, cfg.head_dim_of,
+                         cfg.window)
+    k7 = k7_served_shape(dev, card, HY_ARCH, (
+        1, HY_PROMPT, cfg.ssm.expand * cfg.d_model, cfg.ssm.d_state))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"peak device memory in phase 13 {peak} bytes "
+          f"({peak / 2 ** 30:.2f} GiB; {(peak - held) / 2 ** 30:.2f} GiB "
+          f"above the {held} bytes the earlier phases hold)", flush=True)
+    n6, n7 = served["launches"]["k6"], served["launches"]["k7"]
+    return ({"hymba_launches": n6, "hymba_ms": k6["ms"],
+             "hymba_call_ms": k6["call_ms"],
+             "hymba_served_ms": served["device_ms"]["k6"] / n6,
+             "hymba_bound_ms": k6["bound_ms"],
+             "hymba_library_ms": k6["library_ms"],
+             "hymba_library_call_ms": k6["library_call_ms"]},
+            {"hymba_launches": n7, "hymba_ms": k7["ms"],
+             "hymba_call_ms": k7["call_ms"],
+             "hymba_served_ms": served["device_ms"]["k7"] / n7,
+             "hymba_bound_ms": k7["bound_ms"]})
 
 
 def main() -> int:
@@ -2274,8 +2762,14 @@ def main() -> int:
     # -- 11: Mamba serving at full width, prefill's scan on K7 ------------
     p11 = mamba_phase(dev, card)
 
-    # -- 12: the kernels line ---------------------------------------------
-    phase("12 the kernels line")
+    # -- 12: MoE serving at full width, prefill attention on K6 -----------
+    p12 = moe_phase(dev, card)
+
+    # -- 13: hybrid serving at full width, K6 and K7 in every prefill -----
+    p13_k6, p13_k7 = hymba_phase(dev, card)
+
+    # -- 14: the kernels line ---------------------------------------------
+    phase("14 the kernels line")
     def bound(b, ops, peak=FP32_OPS_PER_S):
         t_b, t_o = b / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
@@ -2347,9 +2841,12 @@ def main() -> int:
                     "launches": launches["k6"], "max_abs_err": p7["k6_err"],
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                     "bound_by": by, "library_ms": lib_ms})
-    # K6's launches on the LM serving path (phase 10) and its time there,
-    # a launch at the served prefill's shape, beside its bound and SDPA
+    # K6's launches on the LM serving paths (phases 10, 12 and 13) and its
+    # time there, a launch at each served prefill's shape, beside its
+    # bound and SDPA
     kernels[-1].update(p10)
+    kernels[-1].update(p12)
+    kernels[-1].update(p13_k6)
     b_ms, by = bound(k7_bytes, k7_ops)
     kernels.append({"name": "mamba_scan_kernel (K7)", "route": "cuda",
                     "source": CSRC + "mamba_scan.cu",
@@ -2357,9 +2854,10 @@ def main() -> int:
                     "launches": launches["k7"], "max_abs_err": p7["k7_err"],
                     "ms": k7_ms, "plain_ms": k7_plain, "bound_ms": b_ms,
                     "bound_by": by, "library_ms": None})
-    # K7's launches on the Mamba serving path (phase 11) and its time at
-    # the served prefill's shape, beside its bound
+    # K7's launches on the Mamba serving paths (phases 11 and 13) and its
+    # time at the served prefill's shape, beside its bound
     kernels[-1].update(p11)
+    kernels[-1].update(p13_k7)
     for case, (ms, plain_ms, lib_ms, b, ops, peak, pairs) in k6_rows.items():
         b_ms, by = bound(b, ops, peak)
         split = "" if peak == BF16_OPS_PER_S else (

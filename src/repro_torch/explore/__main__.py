@@ -380,6 +380,15 @@ def faults_smoke(device="cuda") -> int:
     return 0
 
 
+#: the arguments of each of ``resume_smoke``'s three runs.  Mining has no
+#: time budget (``inf``): a run that a loaded host slows past a finite
+#: budget stops mining early, and its records then differ from the others'
+RESUME_SMOKE_ARGS = (
+    "per-app", "--suite", "camera", "--simulate", "--rows", "6",
+    "--cols", "6", "--chains", "2", "--sweeps", "4", "--min-support", "2",
+    "--max-pattern-nodes", "5", "--mining-budget-s", "inf")
+
+
 def resume_smoke(device="cuda") -> int:
     """Kill-resume self check, the pipeline on ``device``.
 
@@ -395,11 +404,8 @@ def resume_smoke(device="cuda") -> int:
     import tempfile
 
     def cli(extra, check=True):
-        cmd = [sys.executable, "-m", "repro_torch.explore", "per-app",
-               "--suite", "camera", "--simulate", "--rows", "6",
-               "--cols", "6", "--chains", "2", "--sweeps", "4",
-               "--min-support", "2", "--max-pattern-nodes", "5",
-               "--device", device] + extra
+        cmd = [sys.executable, "-m", "repro_torch.explore",
+               *RESUME_SMOKE_ARGS, "--device", device] + extra
         p = subprocess.run(cmd, capture_output=True, text=True,
                            timeout=600)
         if check and p.returncode != 0:
@@ -438,7 +444,8 @@ def resume_smoke(device="cuda") -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
+    """The CLI's argument parser."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.explore",
                                  description=__doc__)
     ap.add_argument("--smoke", action="store_true",
@@ -461,6 +468,11 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd")
     for cmd in ("per-app", "domain"):
         _add_common(sub.add_parser(cmd))
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = build_parser()
     args = ap.parse_args(argv)
     from .config import ConfigFormatError
     from .records import RecordFormatError

@@ -7,10 +7,12 @@ vocab 512, random weights from ``--seed``) and the port's ``--device``:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --requests 8 --max-new 16 [--device cpu]
 
+Every configuration of ``repro_torch.configs`` runs:
 ``--arch falcon-mamba-7b`` serves the Mamba mixer (prefill's selective
 scan on K7); ``hymba-1.5b`` runs attention and the Mamba mixer side by
-side.  Without a card, ``--device cuda`` (the default) fails with one
-``error: ... no CUDA device`` line.
+side; ``qwen2-moe-a2.7b`` and ``qwen3-moe-235b-a22b`` the MoE MLP
+(``models.moe``).  Without a card, ``--device cuda`` (the default) fails
+with one ``error: ... no CUDA device`` line.
 """
 
 from __future__ import annotations

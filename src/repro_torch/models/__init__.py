@@ -1,7 +1,7 @@
 """Model zoo: unified decoder LM for the assigned architectures, in
-PyTorch (the ``attn``, ``mamba`` and ``hymba`` mixers; MoE raises
-``NotImplementedError``), with the conversions that carry the JAX
-package's parameters and caches across."""
+PyTorch (the ``attn``, ``mamba`` and ``hymba`` mixers, the dense and
+MoE MLPs), with the conversions that carry the JAX package's parameters
+and caches across."""
 
 from .config import ArchConfig, MoEConfig, SSMConfig
 from .model import (cache_from_reference, cache_shapes, cache_to_numpy,

@@ -29,7 +29,7 @@ from ..device import resolve_device
 from .config import ArchConfig
 from .layers import blockwise_attention, rms_norm, soft_cap
 from .transformer import (DecoderLM, _mlp, _n_self, _to_torch,
-                          cross_layer_body, layer_body, require_no_moe)
+                          cross_layer_body, layer_body)
 
 __all__ = ["cache_from_reference", "cache_shapes", "cache_to_numpy",
            "decode_step", "forward", "init_cache", "prefill"]
@@ -97,7 +97,6 @@ def _set_ssm_state(cache, states) -> None:
 def forward(params: DecoderLM, cfg: ArchConfig, tokens, *,
             enc=None, compute_dtype=torch.bfloat16,
             return_hidden: bool = False) -> torch.Tensor:
-    require_no_moe(cfg)
     b, s = tokens.shape[:2]
     x = _embed(params, cfg, tokens, compute_dtype)
     q_pos = _positions(b, s, 0, x.device)
@@ -154,7 +153,6 @@ def prefill(params: DecoderLM, cfg: ArchConfig, tokens, *, smax: int,
             enc=None, compute_dtype=torch.bfloat16
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Returns (last-position logits (B, V), filled caches)."""
-    require_no_moe(cfg)
     b, s = tokens.shape[:2]
     x = _embed(params, cfg, tokens, compute_dtype)
     q_pos = _positions(b, s, 0, x.device)
@@ -199,7 +197,6 @@ def decode_step(params: DecoderLM, cfg: ArchConfig, token, cache, *,
     """token: (B,) ints (or (B, 1, D) embeddings).  Returns (logits (B,V),
     the cache with the token's keys and values written in place, the
     Mamba state replaced and ``len`` advanced)."""
-    require_no_moe(cfg)
     b = token.shape[0]
     if cfg.input_mode == "embeddings":
         x = torch.as_tensor(token, device=params.embed.device)

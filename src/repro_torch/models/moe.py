@@ -1,0 +1,126 @@
+"""Mixture-of-Experts layer with row-local capacity dispatch, in PyTorch.
+
+The port of the JAX package's ``repro.models.moe`` on its default path
+(``moe_combine="gather"``, ``moe_impl="pjit"``; the shard_map variant
+waits for the sharding slice).  The dispatch is per sequence (row):
+
+1. router top-k per token (float32 logits, padded experts masked to
+   ``-1e30``, softmax, top-k in ``lax.top_k``'s order: ties to the lower
+   expert id, then renormalized);
+2. per-row counting sort: the position of each (token, choice) within
+   its expert is the exclusive cumulative count of one-hots along the
+   row, flattened token-major; the capacity of a (row, expert) is
+   ``max(k, round(S*k/E * cf))`` with Python's ``round`` (half to even);
+   entries at or past it are dropped;
+3. scatter into a zero expert buffer, the experts' SwiGLU over the whole
+   buffer, and a gather-combine weighted by the router probabilities in
+   float32, each token's k choices added in order (deterministic: no
+   atomics);
+4. optional dense shared experts gated by a sigmoid (qwen2-moe).
+
+The buffer is laid out (E, B*C, d) where the JAX package has (B, E, C,
+d): one batched product an expert, the same sums.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import MoEConfig
+from .layers import mlp_swiglu, _silu
+
+__all__ = ["capacity_of", "dispatch", "moe_mlp", "router_topk"]
+
+#: the logit the JAX package gives padded experts
+PAD_LOGIT = -1e30
+
+
+def router_topk(x: torch.Tensor, w_router: torch.Tensor, moe: MoEConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (weights (B, S, k) float32, expert ids (B, S, k)
+    int64).  Equal probabilities are taken lowest id first, as
+    ``lax.top_k`` takes them (a stable descending sort)."""
+    logits = torch.matmul(x.float(), w_router.float())
+    e_pad = w_router.shape[1]
+    if e_pad > moe.n_experts:                      # mask padded experts
+        logits[..., moe.n_experts:] = PAD_LOGIT
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :moe.top_k], idx[..., :moe.top_k]
+    if moe.router_norm_topk:
+        vals = vals / torch.clamp(vals.sum(dim=-1, keepdim=True), min=1e-9)
+    return vals, idx
+
+
+def capacity_of(s: int, moe: MoEConfig) -> int:
+    """Entries an expert takes from a row of ``s`` tokens: the JAX
+    package's expression, Python's ``round`` included."""
+    k = moe.top_k
+    return int(max(k, round(s * k / moe.n_experts * moe.capacity_factor)))
+
+
+def dispatch(experts: torch.Tensor, e_pad: int, capacity: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """experts: (B, S, k) ids -> (position of each (token, choice) within
+    its expert's row-local queue, whether it is kept), each (B, S*k),
+    flattened token-major as ``experts.reshape(b, s*k)``."""
+    b = experts.shape[0]
+    flat_e = experts.reshape(b, -1)
+    onehot = F.one_hot(flat_e, e_pad)                               # (B,Sk,E)
+    pos_all = torch.cumsum(onehot, dim=1) - onehot                  # exclusive
+    pos = torch.gather(pos_all, 2, flat_e[..., None])[..., 0]
+    return pos, pos < capacity
+
+
+def moe_mlp(x: torch.Tensor, params: Dict[str, torch.Tensor],
+            moe: MoEConfig) -> torch.Tensor:
+    """x: (B, S, d).  params: w_router (d, E_pad); wg/wu (E_pad, d,
+    d_expert); wd (E_pad, d_expert, d); optional shared experts sg/su (d,
+    d_shared), sd (d_shared, d), shared_gate (d,)."""
+    b, s, d = x.shape
+    e_pad = params["w_router"].shape[1]
+    k = moe.top_k
+    sk = s * k
+
+    weights, experts = router_topk(x, params["w_router"], moe)     # (B,S,k)
+    capacity = capacity_of(s, moe)
+    pos, keep = dispatch(experts, e_pad, capacity)                  # (B, S*k)
+    flat_e = experts.reshape(b, sk)
+    flat_w = weights.reshape(b, sk)
+
+    # ---- row-local dispatch into (E, B*C) rows, one spare row for drops --
+    rows = torch.arange(b, device=x.device)[:, None]
+    slot = (flat_e * b + rows) * capacity                           # (B, S*k)
+    dest = torch.where(keep, slot + pos, e_pad * b * capacity)
+    tok = x.reshape(b, s, 1, d).expand(b, s, k, d).reshape(b, sk, d)
+    gathered = torch.where(keep[..., None], tok, 0).to(x.dtype)
+    buf = torch.zeros((e_pad * b * capacity + 1, d), dtype=x.dtype,
+                      device=x.device)
+    buf[dest.reshape(-1)] = gathered.reshape(-1, d)
+    buf = buf[:-1].view(e_pad, b * capacity, d)
+
+    # ---- expert compute ------------------------------------------------------
+    g = torch.bmm(buf, params["wg"])
+    u = torch.bmm(buf, params["wu"])
+    h = (_silu(g) * u).to(x.dtype)
+    out_buf = torch.bmm(h, params["wd"]).to(x.dtype)
+
+    # ---- combine: each token's k choices added in order ------------------------
+    src = (slot + torch.where(keep, pos, 0)).reshape(-1)
+    expert_out = out_buf.reshape(-1, d)[src].reshape(b, sk, d)
+    expert_out = expert_out * (flat_w * keep).float()[..., None]
+    expert_out = expert_out.reshape(b, s, k, d)
+    y = torch.zeros((b, s, d), dtype=torch.float32, device=x.device)
+    for j in range(k):
+        y = y + expert_out[:, :, j]
+
+    # ---- shared experts (qwen2-moe) -------------------------------------------
+    if moe.n_shared and "sg" in params:
+        shared = mlp_swiglu(x, params["sg"], params["su"], params["sd"])
+        z = torch.matmul(x.float(), params["shared_gate"].float())
+        gate = 1 / (1 + torch.exp(-z))
+        y = y + shared.float() * gate[..., None]
+    return y.to(x.dtype)

@@ -4,12 +4,11 @@ The port of the JAX package's ``repro.models.transformer``: the ``attn``
 mixer (GQA + RoPE, per-layer local/global window, logit softcap,
 QK-norm), the ``mamba`` mixer (``models.ssm.mamba_mixer``) and the
 ``hymba`` one (attention and the Mamba mixer on the same normed input,
-averaged), gated cross-attention (VLM backbone) and the SwiGLU / GELU /
-GEGLU MLPs.  A layer's parameters live in a :class:`DecoderLayer` or
-:class:`CrossLayer` (a ``ParameterDict`` keyed by the JAX package's
-names, one layer each, not stacked); the model's in a :class:`DecoderLM`.
-The MoE MLP is not ported yet: its configurations raise
-``NotImplementedError``.
+averaged), gated cross-attention (VLM backbone), the SwiGLU / GELU /
+GEGLU MLPs and the MoE MLP (``models.moe.moe_mlp``).  A layer's
+parameters live in a :class:`DecoderLayer` or :class:`CrossLayer` (a
+``ParameterDict`` keyed by the JAX package's names, one layer each, not
+stacked); the model's in a :class:`DecoderLM`.
 
 Self-attention whose queries and keys are the same fresh sequence
 (``forward``, and ``prefill`` into an empty cache) runs on the
@@ -35,12 +34,13 @@ from ..kernels.ops import attention
 from .config import ArchConfig
 from .layers import (FAR, apply_rope, blockwise_attention, mlp_gelu,
                      mlp_geglu, mlp_swiglu, rms_norm, rope_tables)
+from .moe import moe_mlp
 from .ssm import mamba_mixer
 
 __all__ = ["CrossLayer", "DecoderLM", "DecoderLayer", "cast_for_compute",
            "cross_layer_body", "cross_layer_shapes",
            "init_params", "layer_body", "layer_shapes", "param_shapes",
-           "params_from_reference", "require_no_moe"]
+           "params_from_reference"]
 
 Shapes = Dict[str, Tuple[int, ...]]
 
@@ -48,6 +48,9 @@ Shapes = Dict[str, Tuple[int, ...]]
 #: norm weights and gates it reads in float32
 COMPUTE_MATRICES = frozenset(("wq", "wk", "wv", "wo", "wg", "wu", "wd", "wi",
                               "wom", "embed", "lm_head"))
+#: the leaves an MoE layer casts besides (every key of ``_moe_shapes``):
+#: the router and the shared gate are read bfloat16-rounded in bfloat16
+MOE_CAST = frozenset(("w_router", "sg", "su", "sd", "shared_gate"))
 #: the Mamba leaves the ``mamba`` mixer reads in float32 (``hymba`` casts
 #: none of its ``ssm_*`` leaves)
 SSM_FLOAT32 = frozenset(("ssm_A_log", "ssm_D"))
@@ -55,23 +58,16 @@ SSM_FLOAT32 = frozenset(("ssm_A_log", "ssm_D"))
 
 def _as_used(cfg: ArchConfig, name: str, v: torch.Tensor, compute_dtype):
     """Leaf ``name`` as the JAX package reads it at every use: the
-    matrices of :data:`COMPUTE_MATRICES` in ``compute_dtype``, and in a
-    ``mamba`` layer every float32 ``ssm_*`` leaf but ``A_log`` and ``D``;
-    any other leaf as it is."""
+    matrices of :data:`COMPUTE_MATRICES` in ``compute_dtype``, in an MoE
+    layer also those of :data:`MOE_CAST`, and in a ``mamba`` layer every
+    float32 ``ssm_*`` leaf but ``A_log`` and ``D``; any other leaf as it
+    is."""
     if name in COMPUTE_MATRICES or (
+            cfg.moe is not None and name in MOE_CAST) or (
             cfg.mixer == "mamba" and name.startswith("ssm_") and
             name not in SSM_FLOAT32 and v.dtype == torch.float32):
         return v.to(compute_dtype)
     return v
-
-
-def require_no_moe(cfg: ArchConfig) -> None:
-    """Raises ``NotImplementedError`` for an MoE configuration: the MoE
-    MLP is the part of the model the port lacks."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE MLP (the JAX package's models/moe.py) is "
-            f"not ported yet (ROADMAP.md section 1, item 4)")
 
 
 # ---------------------------------------------------------------------------
@@ -219,7 +215,6 @@ def _build(cfg: ArchConfig, leaf) -> DecoderLM:
     """A :class:`DecoderLM` whose tensors ``leaf(path, name, shape)``
     makes; ``path`` is ``("layers", i)``, ``("cross_layers", i)`` or
     ``()``."""
-    require_no_moe(cfg)
     shapes = layer_shapes(cfg)
     layers = [DecoderLayer({k: _param(leaf(("layers", i), k, s))
                             for k, s in sorted(shapes.items())})
@@ -239,13 +234,16 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                 *, dtype=torch.float32, device="cuda") -> DecoderLM:
     """Random init by the rules the JAX package's ``init_params`` applies
     (its draws are threefry's, these ``generator``'s): norms and the q/k
-    norms are ones, gates are zero, ``ssm_A_log`` is ``log(1..N)`` on
-    every channel, and every other leaf is normal times
-    ``1/sqrt(fan_in)``, ``fan_in`` the second-to-last dim of the leaf as
-    the JAX package stacks it, (L, ...) for a layer's: of an embedding,
-    the vocabulary; of a layer's vector (``ssm_D``, ``ssm_conv_b``,
-    ``ssm_dt_bias``: their ``ssm_`` names miss the JAX package's list of
-    ones) the layer count L; of ``ssm_conv_w`` the kernel width."""
+    norms are ones, gates (names starting ``gate``) are zero,
+    ``ssm_A_log`` is ``log(1..N)`` on every channel, and every other leaf
+    is normal times ``1/sqrt(fan_in)``, ``fan_in`` the second-to-last dim
+    of the leaf as the JAX package stacks it, (L, ...) for a layer's: of
+    an embedding, the vocabulary; of a layer's vector (``ssm_D``,
+    ``ssm_conv_b``, ``ssm_dt_bias``: their ``ssm_`` names miss the JAX
+    package's list of ones; and ``shared_gate``, which is no ``gate*``)
+    the layer count L; of ``ssm_conv_w`` the kernel width; of the
+    experts' ``wg``/``wu`` (L, E, d, f) d, of ``wd`` f.  Each leaf is
+    drawn in float32 and then cast to ``dtype``."""
     dev = resolve_device(device)
     depth = {"layers": _n_self(cfg), "cross_layers": cfg.n_cross_layers}
 
@@ -284,7 +282,6 @@ def params_from_reference(cfg: ArchConfig, tree: dict, *,
     dicts of numpy arrays, layers stacked (L, ...) as ``param_shapes``
     gives them.  Values and dtypes are kept."""
     dev = resolve_device(device)
-    require_no_moe(cfg)
     want = param_shapes(cfg)
     got = {}
     for key, shape in want.items():
@@ -307,10 +304,12 @@ def cast_for_compute(params: DecoderLM, cfg: ArchConfig,
                      compute_dtype) -> DecoderLM:
     """A :class:`DecoderLM` holding a ``compute_dtype`` copy, made once, of
     exactly the leaves the JAX package casts at every use (the matrices,
-    and a ``mamba`` layer's float32 ``ssm_*`` leaves but ``A_log`` and
-    ``D``); norm weights, gates and the leaves a ``hymba`` layer reads
-    uncast are shared, in their own dtype.  The values equal a cast at
-    every use."""
+    an MoE layer's router, shared experts and shared gate, and a
+    ``mamba`` layer's float32 ``ssm_*`` leaves but ``A_log`` and ``D``);
+    norm weights, gates and the leaves a ``hymba`` layer reads uncast are
+    shared, in their own dtype, and so is a leaf already in
+    ``compute_dtype`` (no second copy).  The values equal a cast at every
+    use."""
     def cast(d):
         return {k: _as_used(cfg, k, v, compute_dtype) for k, v in d.items()}
     return DecoderLM(
@@ -390,6 +389,9 @@ def _attention(x, lp, cfg: ArchConfig, *, q_pos, is_global: bool,
 
 
 def _mlp(x, lp, cfg: ArchConfig, compute_dtype=torch.bfloat16):
+    if cfg.moe is not None:
+        return moe_mlp(x, {k: lp[k].to(compute_dtype)
+                           for k in _moe_shapes(cfg) if k in lp}, cfg.moe)
     if not cfg.d_ff:
         return torch.zeros_like(x)
     if cfg.mlp == "gelu":
@@ -407,7 +409,6 @@ def layer_body(x, lp, cfg: ArchConfig, *, q_pos, is_global: bool,
     (``{"conv", "h"}``) when the layer has the Mamba mixer and
     ``ssm_state`` is given (decode) or ``return_state`` is set (prefill,
     from a zero state), else None."""
-    require_no_moe(cfg)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     new_cache = new_state = None
     if cfg.mixer != "mamba":

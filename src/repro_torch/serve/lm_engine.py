@@ -6,10 +6,12 @@ prefilling one queued request at batch 1 and splicing its cache rows into
 the slot (every cache leaf whose second dim is ``slots``: k/v and the
 Mamba state ``ssm_conv``/``ssm_h``, each cast into the slot's dtype as
 JAX's ``.at[:, s].set`` casts); decoding is greedy (the first index on
-ties).  Prefill runs the flash-attention kernel K6 in every
-self-attention layer and the selective-scan kernel K7 in every Mamba
-mixer; decode runs the port's ``blockwise_attention`` over the cache and
-the Mamba mixer's one-step recurrence.
+ties).  Every configuration runs (the ``attn``, ``mamba`` and ``hymba``
+mixers, dense and MoE MLPs).  Prefill runs the flash-attention kernel K6
+in every self-attention layer and the selective-scan kernel K7 in every
+Mamba mixer; decode runs the port's ``blockwise_attention`` over the
+cache and the Mamba mixer's one-step recurrence.  The MoE MLP is
+row-local: a slot's tokens are dispatched apart from the other slots'.
 
 ``cache["len"]`` is one length for all slots: each refill sets it to that
 request's prompt length, as the JAX package does.  Attention reads it, so

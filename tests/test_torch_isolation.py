@@ -31,7 +31,7 @@ def test_import_leaves_jax_and_repro_out():
             "import repro_torch.obs.report, repro_torch.obs.history\n"
             "import repro_torch.obs.regress, repro_torch.obs.buildprof\n"
             "import repro_torch.configs, repro_torch.models\n"
-            "import repro_torch.models.ssm\n"
+            "import repro_torch.models.ssm, repro_torch.models.moe\n"
             "import repro_torch.serve.lm_engine, repro_torch.launch.serve\n"
             "repro_torch.configs.get_config('llama3.2-1b')\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "

@@ -7,7 +7,7 @@ reason when none does; the file imports nothing of the JAX package.
 Tolerance: rtol = atol = 1e-4 in float32 (K6 is 3xTF32, cuBLAS float32
 products are not TF32, K7 sums the states in another order), greedy
 tokens equal.  ``chip_smoke.py`` phases 10 and 11 run :func:`card_vs_cpu`
-on every arch too.
+on every arch too, and phase 12 :func:`moe_layer_card_vs_cpu`.
 """
 
 import numpy as np
@@ -18,14 +18,20 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention, mamba_scan
 from repro_torch.kernels.mamba_scan import mamba_scan_plain
 from repro_torch.models import decode_step, forward, init_params, prefill
+from repro_torch.models.moe import (capacity_of, dispatch, moe_mlp,
+                                    router_topk)
+from repro_torch.models.transformer import _moe_shapes
 from repro_torch.serve.lm_engine import Request, ServeEngine
 
 pytestmark = pytest.mark.gpu
 
 ARCHS = ["llama3.2-1b", "deepseek-coder-33b", "gemma2-27b", "gemma3-27b",
          "musicgen-large", "llama-3.2-vision-90b", "falcon-mamba-7b",
-         "hymba-1.5b"]
+         "hymba-1.5b", "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"]
 TOL = 1e-4
+#: two router probabilities this close (the k-th and the (k+1)-th of a
+#: token) may be taken in either order on the card and on the CPU
+MOE_TIE = 1e-6
 
 
 def _need_card():
@@ -152,3 +158,53 @@ def test_k7_state_equals_plain(s, with_h0):
     np.testing.assert_allclose(y.cpu().numpy(), want_y.cpu().numpy(),
                                rtol=TOL, atol=TOL)
     assert torch.equal(mamba_scan(a, bx, c, h0=h0), y)
+
+
+def moe_layer_card_vs_cpu(arch="qwen2-moe-a2.7b", s=512, dev="cuda",
+                          seed=0):
+    """One MoE layer of ``arch`` at full width in float32, card against
+    CPU: the same weights (drawn by ``init_params``'s rule) and a
+    ``s``-token input through ``moe_mlp`` on both.  The expert ids must be
+    equal but for tokens whose k-th and (k+1)-th probabilities lie within
+    :data:`MOE_TIE` (those must be under 1% of the tokens); on every token
+    before a row's first differing id the drops must be equal and the
+    output's relative error norm at most :data:`TOL`.  Returns (near ties,
+    tokens whose ids differ, entries dropped, relative error norm)."""
+    cfg = get_config(arch)
+    moe = cfg.moe
+    gen = torch.Generator().manual_seed(seed)
+    cpu = {}
+    for name, shape in sorted(_moe_shapes(cfg).items()):
+        fan_in = shape[-2] if len(shape) >= 2 else cfg.n_layers
+        cpu[name] = torch.randn(shape, generator=gen) / fan_in ** 0.5
+    x = torch.randn((1, s, cfg.d_model), generator=gen)
+    card = {k: v.to(dev) for k, v in cpu.items()}
+    xc = x.to(dev)
+    e_pad = cpu["w_router"].shape[1]
+    cap = capacity_of(s, moe)
+    ids_h = router_topk(x, cpu["w_router"], moe)[1]
+    ids_c = router_topk(xc, card["w_router"], moe)[1].cpu()
+    probs = torch.softmax(x @ cpu["w_router"][:, :moe.n_experts], -1)
+    top = torch.sort(probs, -1, descending=True).values
+    near = (top[..., moe.top_k - 1] - top[..., moe.top_k]) < MOE_TIE
+    differ = (ids_h != ids_c).any(-1)
+    assert not bool((differ & ~near).any()), "ids differ away from a tie"
+    assert int(near.sum()) <= s // 100, f"{int(near.sum())} near ties"
+    # tokens before a row's first differing id are dispatched alike
+    same = torch.cumsum(differ.int(), -1) == 0
+    keep_h = dispatch(ids_h, e_pad, cap)[1].reshape(1, s, moe.top_k)
+    keep_c = dispatch(ids_c, e_pad, cap)[1].reshape(1, s, moe.top_k)
+    assert torch.equal(keep_h[same], keep_c[same])
+    y_h = moe_mlp(x, cpu, moe)
+    y_c = moe_mlp(xc, card, moe).cpu()
+    assert y_c.shape == y_h.shape and bool(torch.isfinite(y_c).all())
+    d = (y_c[same].double() - y_h[same].double()).norm()
+    rel = float(d / y_h[same].double().norm())
+    assert rel <= TOL, f"relative error norm {rel}"
+    return int(near.sum()), int(differ.sum()), int((~keep_h).sum()), rel
+
+
+def test_moe_layer_card_equals_cpu():
+    _need_card()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    moe_layer_card_vs_cpu()

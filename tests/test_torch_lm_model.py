@@ -45,11 +45,11 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.models import transformer as tt
 from repro_torch.models.layers import FAR, blockwise_attention
 
-#: the architectures the port runs: attn-only, mamba and hymba
+#: the architectures the port runs: all ten (attn-only, MoE, mamba and
+#: hymba)
 ARCHS = ["llama3.2-1b", "deepseek-coder-33b", "gemma2-27b", "gemma3-27b",
          "musicgen-large", "llama-3.2-vision-90b", "falcon-mamba-7b",
-         "hymba-1.5b"]
-UNSUPPORTED = ["qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"]
+         "hymba-1.5b", "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: prompt, teacher-forced decode steps, cache length
 S, STEPS, SMAX = 8, 4, 16
@@ -353,21 +353,43 @@ def test_prefill_decode_consistency(arch):
     assert int(cache2["len"]) == int(cache["len"]) + 1
 
 
-@pytest.mark.parametrize("arch", UNSUPPORTED)
-def test_unported_mixers_raise(arch):
+def test_archs_cover_reference():
+    """Every architecture the JAX package carries is in :data:`ARCHS`."""
+    assert sorted(ARCHS) == sorted(r_archs())
+
+
+class _MoESpy:
+    """Records every call of the MoE MLP the model makes."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        real = tt.moe_mlp
+
+        def spy(x, params, moe):
+            self.calls.append((tuple(x.shape), sorted(params)))
+            return real(x, params, moe)
+        monkeypatch.setattr(tt, "moe_mlp", spy)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"])
+def test_moe_mlp_once_a_layer(arch, monkeypatch):
+    """forward, prefill and decode_step call the MoE MLP once a layer,
+    with every leaf of the layer's ``_moe_shapes`` and the layer's tokens
+    (one a row in decode); K6 runs once a layer in forward and prefill."""
     cfg = get_config(arch).reduced()
-    tree = jax.tree.map(lambda s: np.zeros(s, np.float32),
-                        T.param_shapes(cfg),
-                        is_leaf=lambda s: isinstance(s, tuple))
-    toks = np.zeros((1, 4), np.int32)
-    for call in (
-            lambda: T.init_params(cfg, device="cpu"),
-            lambda: T.params_from_reference(cfg, tree, device="cpu"),
-            lambda: T.forward(None, cfg, toks),
-            lambda: T.prefill(None, cfg, toks, smax=8),
-            lambda: T.decode_step(None, cfg, toks[:, 0], {})):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            call()
+    tp = T.init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
+    toks, _ = _inputs(cfg)
+    moe, attn = _MoESpy(monkeypatch), _Spy(monkeypatch)
+    keys = sorted(tt._moe_shapes(cfg))
+    L, d = cfg.n_layers, cfg.d_model
+    T.forward(tp, cfg, toks)
+    _, cache = T.prefill(tp, cfg, toks[:, :S], smax=SMAX)
+    for t in range(S, S + STEPS):
+        _, cache = T.decode_step(tp, cfg, toks[:, t], cache)
+    assert moe.calls == ([((2, S + STEPS, d), keys)] * L
+                         + [((2, S, d), keys)] * L
+                         + [((2, 1, d), keys)] * (L * STEPS))
+    assert len(attn.calls) == 2 * L
 
 
 def _layer_cases():

@@ -8,7 +8,9 @@ refill, so it is right only when every prompt has one length and every
 request one ``max_new``: the port keeps that fault, and
 ``test_uniform_len_fault_kept`` shows it.  The Mamba mixer reads no
 position, so falcon-mamba is served right at mixed lengths
-(``test_mamba_engine_mixed_prompt_lengths``).
+(``test_mamba_engine_mixed_prompt_lengths``).  The MoE MLP is row-local,
+so a slot's tokens do not depend on what the other slots hold
+(``test_moe_engine_matches_reference``).
 """
 
 import importlib
@@ -111,6 +113,35 @@ def test_mamba_engine_mixed_prompt_lengths():
         assert alone.run() == {rid: outs[rid]}, rid
 
 
+def test_moe_engine_matches_reference():
+    """qwen2-moe at reduced widths, 2 slots, 4 prompts of one length: after
+    the first refill every spliced cache leaf equals the JAX engine's
+    (k and v, float32 at 1e-4), and the served tokens are the JAX
+    engine's; each request's tokens equal its run alone."""
+    cfg, ref, port = _engines(2, 32, arch="qwen2-moe-a2.7b")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, 8, dtype=np.int32)
+               for _ in range(4)]
+    for rid, p in enumerate(prompts):
+        port.submit(Request(rid, p, max_new=5))
+        ref.submit(RRequest(rid, p, max_new=5))
+    port._refill()
+    ref._refill()
+    assert sorted(port.cache) == sorted(ref.cache) == ["k", "len", "v"]
+    for key in ("k", "v"):
+        np.testing.assert_allclose(port.cache[key].numpy(),
+                                   np.asarray(ref.cache[key]), rtol=1e-4,
+                                   atol=1e-4, err_msg=key)
+    assert int(port.cache["len"]) == int(ref.cache["len"]) == 8
+    outs = port.run()
+    assert outs == ref.run()
+    assert all(len(t) == 5 for t in outs.values())
+    for rid in (0, 3):
+        _, _, alone = _engines(2, 32, arch="qwen2-moe-a2.7b")
+        alone.submit(Request(rid, prompts[rid], max_new=5))
+        assert alone.run() == {rid: outs[rid]}, rid
+
+
 def test_hymba_cache_dtypes_follow_reference_engine():
     """hymba in bfloat16: the engine's cache leaves have the JAX engine's
     dtypes after a refill (the float32 conv window spliced into the
@@ -169,6 +200,14 @@ def test_launch_serve_mamba_cpu():
     """The launcher serving falcon-mamba (its reduced widths), on the
     CPU."""
     out = _launch_cpu("--arch", "falcon-mamba-7b")
+    assert out.returncode == 0, out.stderr
+    assert "served 8 requests, 128 tokens" in out.stdout
+    assert out.stdout.count("  req ") == 8
+
+
+def test_launch_serve_moe_cpu():
+    """The launcher serving qwen2-moe (its reduced widths), on the CPU."""
+    out = _launch_cpu("--arch", "qwen2-moe-a2.7b")
     assert out.returncode == 0, out.stderr
     assert "served 8 requests, 128 tokens" in out.stdout
     assert out.stdout.count("  req ") == 8

@@ -407,3 +407,38 @@ def test_resume_smoke_cli_cpu():
     out = _smoke_cli("--resume-smoke")
     assert out.returncode == 0, out.stdout + out.stderr
     assert "explore resume-smoke OK" in out.stdout
+
+
+def test_resume_smoke_mining_ignores_the_clock(monkeypatch):
+    """The resume smoke's runs mine what they mine however slow the host:
+    with a clock that leaps 1e6 s at every reading, mining under the
+    smoke's arguments (parsed by the CLI's own parser) finds the patterns
+    an unhurried run finds, where the former default budget of 15 s
+    stops it before the first level."""
+    import itertools
+    import types
+
+    from repro_torch.apps import image_graphs
+    from repro_torch.core import mining
+    from repro_torch.explore import __main__ as cli
+
+    def mining_config(argv):
+        args = cli.build_parser().parse_args(list(argv))
+        return cli._config_from_args(args, "per_app").mining
+
+    def labels(cfg):
+        return [m.label for m in mining.mine_frequent_subgraphs(graph, cfg)]
+
+    graph = image_graphs()["harris"]
+    cfg = mining_config(cli.RESUME_SMOKE_ARGS)
+    assert cfg.time_budget_s == float("inf")
+    want = labels(cfg)
+    # the smoke's arguments before the budget was lifted: the default
+    i = cli.RESUME_SMOKE_ARGS.index("--mining-budget-s")
+    old = mining_config(cli.RESUME_SMOKE_ARGS[:i])
+    assert old.time_budget_s == 15.0 and labels(old) == want
+    clock = itertools.count(0.0, 1e6)
+    monkeypatch.setattr(mining, "time",
+                        types.SimpleNamespace(monotonic=lambda: next(clock)))
+    assert labels(cfg) == want and len(want) > 10
+    assert labels(old) != want
