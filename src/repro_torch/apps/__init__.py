@@ -1,5 +1,5 @@
-"""Application suites: the paper's image/ML domains (the LM idioms of
-the JAX package wait for the jaxpr front end)."""
+"""Application suites: the paper's image/ML domains + LM idioms
+(``apps.lm.lm_idiom_graphs``, traced from torch functions)."""
 
 from . import image, mlkernels
 from .image import APPS as IMAGE_APPS

@@ -19,7 +19,12 @@ wrapper pads k/v with zero rows that enter the softmax when
 
 ``flash_attention`` counts its launches in ``flash_attention.launches``.
 For CUDA tensors it launches K6 or raises; for CPU tensors it runs
-:func:`attention_plain`.
+:func:`attention_plain`.  When an operand requires a gradient (and
+grad mode is on), K6 runs inside a ``torch.autograd.Function`` whose
+backward recomputes the function with :func:`attention_plain` and
+differentiates that: the JAX package has no backward kernel either.  A
+launch with no operand requiring a gradient (serving) is the bare
+kernel, as before.
 """
 
 from __future__ import annotations
@@ -59,6 +64,13 @@ def _check_args(q, k, v):
         raise ValueError("q, k and v must lie on one device")
 
 
+def _splice(t: torch.Tensor, rows: torch.Tensor, r0: int, r1: int):
+    """``t`` with its rows ``r0:r1`` (dim 2) replaced by ``rows``."""
+    if r0 == 0 and r1 == t.shape[2]:
+        return rows
+    return torch.cat([t[:, :, :r0], rows, t[:, :, r1:]], dim=2)
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0, scale: float = 0.0,
@@ -67,7 +79,9 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     keys, in float32, with ``_attn_kernel``'s arithmetic (``torch.matmul``
     for the two products).  No S x S tensor is formed: a block updates only
     the query rows its keys can reach; for the others it would be an exact
-    no-op (a later real key's ``alpha = exp(-1e30 - m)`` is 0)."""
+    no-op (a later real key's ``alpha = exp(-1e30 - m)`` is 0).  Every
+    update is out of place, so autograd differentiates it: it is K6's
+    backward."""
     _check_args(q, k, v)
     b, hq, s, d = q.shape
     group = hq // k.shape[1]
@@ -103,10 +117,11 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m_new = torch.maximum(m_old, sc.amax(dim=-1))
         p = torch.exp(sc - m_new[..., None])
         alpha = torch.exp(m_old - m_new)
-        l[:, :, r0:r1] = l[:, :, r0:r1] * alpha + p.sum(dim=-1)
-        acc[:, :, r0:r1] = acc[:, :, r0:r1] * alpha[..., None] \
-            + torch.matmul(p, vb)
-        m[:, :, r0:r1] = m_new
+        # out of place, so that autograd can differentiate the loop
+        l = _splice(l, l[:, :, r0:r1] * alpha + p.sum(dim=-1), r0, r1)
+        acc = _splice(acc, acc[:, :, r0:r1] * alpha[..., None]
+                      + torch.matmul(p, vb), r0, r1)
+        m = _splice(m, m_new, r0, r1)
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
 
@@ -161,7 +176,24 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"head dim {d} exceeds K6's {MAX_HEAD_DIM}")
     if b > 65535 or hq > 65535:
         raise ValueError(f"B = {b} or Hq = {hq} exceeds K6's grid (65535)")
-    scale = float(scale or 1.0 / math.sqrt(d))
+    kw["scale"] = float(scale or 1.0 / math.sqrt(d))
+    return _dispatch(q, k, v, kw)
+
+
+def _dispatch(q, k, v, kw):
+    """K6 inside its autograd Function when an operand needs a gradient,
+    else the bare launch (serving)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        return _FlashAttention.apply(q, k, v, kw)
+    return _launch(q, k, v, **kw)
+
+
+def _launch(q, k, v, *, causal: bool, window: int, softcap: float,
+            scale: float) -> torch.Tensor:
+    """One launch of K6 on checked CUDA operands; counts it."""
+    b, hq, s, d = q.shape
+    dev = q.device
     dp = d
     if q.dtype == torch.bfloat16 and d % 8:
         # 16-byte copies of whole rows: zero columns change no score and
@@ -188,6 +220,27 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             f"({lib.flash_attention_error_string(rc).decode()})")
     flash_attention.launches += 1
     return out if dp == d else out[..., :d].contiguous()
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K6 under autograd: the forward launches K6; the backward
+    recomputes the same function with :func:`attention_plain` and returns
+    its gradients (there is no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        ctx.kw = kw
+        ctx.save_for_backward(q, k, v)
+        return _launch(q, k, v, **kw)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = attention_plain(q, k, v, **ctx.kw)
+            grads = torch.autograd.grad(out, (q, k, v), grad_out)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad)) + (None,)
 
 
 flash_attention.launches = 0

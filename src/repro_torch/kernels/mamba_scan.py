@@ -15,7 +15,11 @@ sequence blocks in VMEM scratch; K7 gives each channel a group of lanes
 
 ``mamba_scan`` counts its launches in ``mamba_scan.launches``.  For CUDA
 tensors it launches K7 or raises; for CPU tensors it runs
-:func:`mamba_scan_plain`.
+:func:`mamba_scan_plain`.  When an operand requires a gradient (and grad
+mode is on), K7 runs inside a ``torch.autograd.Function`` whose backward
+recomputes the scan with :func:`mamba_scan_plain` and differentiates
+that (the JAX package has no backward kernel either); with no operand
+requiring a gradient (serving) the launch is the bare kernel.
 """
 
 from __future__ import annotations
@@ -117,6 +121,22 @@ def mamba_scan(a, bx, c, *, h0=None, return_state: bool = False,
         raise ValueError(f"state size N = {n} outside K7's 1..{MAX_STATE}")
     if b > 65535:
         raise ValueError(f"B = {b} exceeds K7's grid (65535)")
+    return _dispatch(a, bx, c, h0, return_state)
+
+
+def _dispatch(a, bx, c, h0, return_state: bool):
+    """K7 inside its autograd Function when an operand needs a gradient,
+    else the bare launch (serving)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, bx, c, h0)):
+        return _MambaScan.apply(a, bx, c, h0, return_state)
+    return _launch(a, bx, c, h0, return_state)
+
+
+def _launch(a, bx, c, h0, return_state: bool):
+    """One launch of K7 on checked CUDA operands; counts it."""
+    b, s, d, n = a.shape
+    dev = a.device
     a, bx, c = a.contiguous(), bx.contiguous(), c.contiguous()
     if h0 is not None:
         h0 = h0.contiguous()
@@ -137,6 +157,36 @@ def mamba_scan(a, bx, c, *, h0=None, return_state: bool = False,
             f"({lib.mamba_scan_error_string(rc).decode()})")
     mamba_scan.launches += 1
     return (y, h_out) if return_state else y
+
+
+class _MambaScan(torch.autograd.Function):
+    """K7 under autograd: the forward launches K7; the backward
+    recomputes the scan with :func:`mamba_scan_plain` and returns its
+    gradients (there is no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, a, bx, c, h0, return_state):
+        ctx.return_state = return_state
+        ctx.save_for_backward(a, bx, c, h0)
+        return _launch(a, bx, c, h0, return_state)
+
+    @staticmethod
+    def backward(ctx, *grads_out):
+        saved = [None if t is None else t.detach().requires_grad_()
+                 for t in ctx.saved_tensors]
+        ins = [t for t in saved if t is not None]
+        with torch.enable_grad():
+            out = mamba_scan_plain(*saved[:3], h0=saved[3],
+                                   return_state=ctx.return_state)
+            outs = out if ctx.return_state else (out,)
+            pairs = [(o, g) for o, g in zip(outs, grads_out)
+                     if g is not None]
+            grads = iter(torch.autograd.grad([o for o, _ in pairs], ins,
+                                             [g for _, g in pairs],
+                                             allow_unused=True))
+        got = [None if t is None else next(grads) for t in saved]
+        return tuple(g if need else None for g, need in
+                     zip(got, ctx.needs_input_grad)) + (None,)
 
 
 mamba_scan.launches = 0

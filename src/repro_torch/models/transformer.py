@@ -181,8 +181,10 @@ def param_shapes(cfg: ArchConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    # inference only: no autograd graph is built through the weights
-    return nn.Parameter(t, requires_grad=False)
+    # no autograd graph is built through the weights unless a train step
+    # gives them Parameters that require a gradient (``models.tree``)
+    return t if isinstance(t, nn.Parameter) else \
+        nn.Parameter(t, requires_grad=False)
 
 
 class DecoderLayer(nn.ParameterDict):

@@ -33,6 +33,11 @@ def test_import_leaves_jax_and_repro_out():
             "import repro_torch.configs, repro_torch.models\n"
             "import repro_torch.models.ssm, repro_torch.models.moe\n"
             "import repro_torch.serve.lm_engine, repro_torch.launch.serve\n"
+            "import repro_torch.graphir.trace, repro_torch.apps.lm\n"
+            "import repro_torch.data, repro_torch.data.pipeline\n"
+            "import repro_torch.checkpoint, repro_torch.models.tree\n"
+            "import repro_torch.train, repro_torch.train.trainer\n"
+            "import repro_torch.launch.train\n"
             "repro_torch.configs.get_config('llama3.2-1b')\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "

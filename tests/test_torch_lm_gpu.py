@@ -7,7 +7,8 @@ reason when none does; the file imports nothing of the JAX package.
 Tolerance: rtol = atol = 1e-4 in float32 (K6 is 3xTF32, cuBLAS float32
 products are not TF32, K7 sums the states in another order), greedy
 tokens equal.  ``chip_smoke.py`` phases 10 and 11 run :func:`card_vs_cpu`
-on every arch too, and phase 12 :func:`moe_layer_card_vs_cpu`.
+on every arch too, phase 12 :func:`moe_layer_card_vs_cpu`, and phase 15
+:func:`train_card_vs_cpu` on every arch and :func:`trainer_fault_run`.
 """
 
 import numpy as np
@@ -21,7 +22,13 @@ from repro_torch.models import decode_step, forward, init_params, prefill
 from repro_torch.models.moe import (capacity_of, dispatch, moe_mlp,
                                     router_topk)
 from repro_torch.models.transformer import _moe_shapes
+from repro_torch.models.tree import leaves, tree_map
 from repro_torch.serve.lm_engine import Request, ServeEngine
+from repro_torch.train import (AdamWConfig, Trainer, TrainerConfig,
+                               adamw_update, build_train_step,
+                               init_opt_state)
+from repro_torch.checkpoint import latest_step
+from repro_torch.data import DataConfig
 
 pytestmark = pytest.mark.gpu
 
@@ -208,3 +215,122 @@ def test_moe_layer_card_equals_cpu():
     _need_card()
     assert not torch.backends.cuda.matmul.allow_tf32
     moe_layer_card_vs_cpu()
+
+
+def train_card_vs_cpu(arch, dev="cuda"):
+    """``arch`` at ``.reduced()`` in float32, one train step on the card
+    and on the CPU from one set of weights and one batch of 24 tokens
+    (longer than the reduced window): the loss, the gradient norm, the
+    learning rate, every leaf's gradient, updated value and moments
+    within :data:`TOL`, each leaf's moments also by relative error norm,
+    and K6 launched once a self-attention layer and K7 once a Mamba mixer
+    layer, all in the forward (their backward is the plain version).  The
+    learning rate is small (1e-5 at step 1), so that a gradient's sign
+    flipped by roundoff near zero moves a leaf by less than the
+    tolerance; the update itself is compared by relative error norm with
+    each device's gradients through an optimizer at eps 1e-2 and lr 0.05,
+    where it is about lr g / eps, smooth in g.  Returns the largest |card
+    - CPU| over the leaves' gradients."""
+    cfg = get_config(arch).reduced()
+    cpu, card = _both(cfg, dev=dev)
+    toks, enc = _inputs(cfg)
+    targets = np.random.default_rng(1).integers(0, cfg.vocab, toks.shape[:2])
+    batch = {"inputs": toks, "targets": targets.astype(np.int32)}
+    if enc is not None:
+        batch["enc"] = enc
+    opt_cfg = AdamWConfig(lr_peak=1e-5, warmup_steps=1, total_steps=10,
+                          moment_dtype=torch.float32)
+    out = {}
+    for name, params in (("cpu", cpu), ("card", card)):
+        seen = {}
+
+        def capture(g, seen=seen):
+            seen["g"] = g
+            return g
+        step = build_train_step(cfg, opt_cfg, compute_dtype=torch.float32,
+                                grad_transform=capture)
+        flash_attention.launches = mamba_scan.launches = 0
+        new, opt, metrics = step(params, init_opt_state(params, opt_cfg),
+                                 batch)
+        out[name] = (new, opt, metrics, seen["g"],
+                     (flash_attention.launches, mamba_scan.launches))
+    k6 = 0 if cfg.mixer == "mamba" else cfg.n_self_layers
+    k7 = 0 if cfg.mixer == "attn" else cfg.n_layers
+    if torch.device(dev).type != "cuda":      # plain versions: no launch
+        k6 = k7 = 0
+    assert out["card"][4] == (k6, k7), f"{arch}: launches {out['card'][4]}"
+    assert out["cpu"][4] == (0, 0)
+    for k in ("loss", "grad_norm", "lr"):
+        got, want = float(out["card"][2][k]), float(out["cpu"][2][k])
+        assert np.isfinite(got), f"{arch}: {k}"
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL,
+                                   err_msg=f"{arch}: {k}")
+    worst = 0.0
+    for what, i in (("gradient", 3), ("updated", 0), ("m", 1), ("v", 1)):
+        tree_c, tree_h = out["card"][i], out["cpu"][i]
+        if what in ("m", "v"):
+            tree_c, tree_h = getattr(tree_c, what), getattr(tree_h, what)
+        for a, b in zip(leaves(tree_c), leaves(tree_h)):
+            got, want = a.value.detach().cpu(), b.value.detach()
+            assert bool(torch.isfinite(got).all()), f"{arch}: {what}"
+            np.testing.assert_allclose(
+                got.numpy(), want.numpy(), rtol=TOL, atol=TOL,
+                err_msg=f"{arch}: {what} {a.name}[{a.index}]")
+            if what == "gradient":
+                worst = max(worst, float((got - want).abs().max()))
+    assert max(float(b.value.abs().max()) for b in leaves(out["cpu"][3])) \
+        > 0, f"{arch}: all gradients zero"
+    smooth = AdamWConfig(lr_peak=0.1, warmup_steps=2, total_steps=10,
+                         eps=1e-2, moment_dtype=torch.float32)
+    for name, params in (("cpu", cpu), ("card", card)):
+        new, opt, _ = adamw_update(params, out[name][3],
+                                   init_opt_state(params, smooth), smooth)
+        out[name] += (tree_map(torch.sub, new, params), opt.v)
+    for what, i in (("m", 1), ("v", 1), ("update", 5), ("v at eps 1e-2", 6)):
+        tree_c, tree_h = out["card"][i], out["cpu"][i]
+        if what in ("m", "v"):
+            tree_c, tree_h = getattr(tree_c, what), getattr(tree_h, what)
+        for a, b in zip(leaves(tree_c), leaves(tree_h)):
+            got, want = a.value.detach().cpu().double(), b.value.double()
+            ref = float(torch.linalg.vector_norm(want))
+            rel = float(torch.linalg.vector_norm(got - want)) / (ref or 1.0)
+            assert rel <= TOL, \
+                f"{arch}: {what} {a.name}[{a.index}] relative {rel:.3e}"
+    return worst
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_card_equals_cpu(arch):
+    _need_card()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    train_card_vs_cpu(arch)
+
+
+def trainer_fault_run(ckpt_dir, dev="cuda"):
+    """``tests/test_train_substrate.py::test_trainer_fault_injection_resumes``
+    on ``dev``, at its dims (one layer, d_model 32, d_ff 64, vocab 64; 20
+    steps of batch 2 x 16 tokens, a checkpoint every 5, a fault at step
+    12): one restart, step 20 reached, latest checkpoint 20.  Returns the
+    trainer."""
+    cfg = get_config("llama3.2-1b").reduced(n_layers=1, d_model=32,
+                                            d_ff=64, vocab=64)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    opt_cfg = AdamWConfig(lr_peak=1e-3, warmup_steps=2, total_steps=20)
+    tr = Trainer(TrainerConfig(total_steps=20, ckpt_every=5,
+                               ckpt_dir=str(ckpt_dir), log_every=5,
+                               data_timeout_s=120.0),
+                 build_train_step(cfg, opt_cfg), params,
+                 init_opt_state(params, opt_cfg),
+                 DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2),
+                 device=dev)
+    state = tr.run(fail_at=12)
+    assert (state.restarts, state.step) == (1, 20)
+    assert latest_step(str(ckpt_dir)) == 20
+    assert all(np.isfinite(h["loss"]) for h in tr.history)
+    return tr
+
+
+def test_trainer_fault_injection_on_card(tmp_path):
+    _need_card()
+    trainer_fault_run(tmp_path)
