@@ -247,7 +247,27 @@ version:
    compared bit for bit on a few leaves, its size and the free disk
    printed; (d) the trainer's fault injection on the card at the JAX
    test's dims (1 restart, step 20, latest checkpoint 20);
-16. print one JSON line ``{"kernels": [...]}`` with launches, max |diff|,
+16. the distribution layer (``repro_torch.sharding``,
+   ``moe_mlp_shardmap``) over a one-rank NCCL group made from a
+   ``FileStore`` and destroyed at the phase's end: (a) phase 15's
+   unreduced Llama 3.2 1B step with ``grad_transform`` the int8
+   all-reduce, every stacked leaf's gradient bit-equal to the plain
+   quantize -> dequantize, the updated leaves bit-equal to the same step
+   handed those gradients, K6 16 times; its ms against the step without
+   it (in turns), the transform's ms and the bytes handed to its
+   all-reduces (int32 sums: 4 bytes an element); (b) 4 processes sharing
+   the card over gloo, each with one decoder layer's gradient tree from
+   its own seed: the compressed all-reduce bit-equal on every rank and to
+   a numpy emulation of the JAX arithmetic; (c) the error of (a) within
+   half a step of its block's scale; (d) ``moe_mlp_shardmap`` at
+   qwen2-moe-a2.7b's width (512 tokens as 4 rows of 128) on the one rank
+   in float32 against the port's CPU run within 1e-4, on the 4 processes
+   (16 experts each) against the one rank by relative error norm within
+   1e-5, timed against ``moe_mlp`` in bfloat16, the entries each
+   capacity rule drops; (e) ``gpipe`` with Llama 3.2 1B's 16 layers as
+   one stage on 4 microbatches of (2, 512), bit-equal to the model's own
+   layer loop, 64 K6 launches counted and in the trace;
+17. print one JSON line ``{"kernels": [...]}`` with launches, max |diff|,
    times and bounds of K1-K7 (K1's row: its launches counted in the
    main path's trace, its ``ms`` K2 with zero steps, the kernel alone,
    against the bound of that launch's bytes, its ``timed`` key says so;
@@ -267,8 +287,9 @@ version:
    ``train_*`` keys from phase 15: launches in the launcher's 10 steps,
    time at the training shape (8, 32/8, 512, 64) with its plain version,
    bound and SDPA, its plain backward a layer, the step's ms; K7's
-   ``train_*``: launches in the reduced Mamba steps, its plain backward),
-   then ``{"ok": true, "device": {...}}`` as the last line.
+   ``train_*``: launches in the reduced Mamba steps, its plain backward;
+   K6's ``dist_train_launches`` and ``dist_gpipe_launches`` its launches
+   in phase 16 (a) and (e)), then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure exits nonzero; no phase catches an error and carries on
 (phase 6 counts the configurations the port refuses with the reference's
@@ -414,26 +435,58 @@ def same_bits(a, b) -> bool:
     return bool(eq.all())
 
 
+def equal_bits(a, b) -> bool:
+    """Two tensors of one dtype and shape equal bit for bit."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        width = {4: torch.int32, 2: torch.int16}[a.element_size()]
+        a, b = a.view(width), b.view(width)
+    return torch.equal(a, b)
+
+
+#: empty kernels launched at the start of every traced window: the
+#: profiler drops the first device records of a window, more the older
+#: the process (tools/trace_loss.py: 7 at 127 s, 59 at 762 s; a whole
+#: run lost phase 16 (e)'s first K6 launch, its 49th record, in 3 of 3
+#: windows)
+TRACE_PREAMBLE = 3000
+
+
 def device_kernels(run):
     """``run()`` under ``torch.profiler`` (CUDA activity): its result, the
     device kernels it launched, ``{name: [milliseconds of each launch]}``
     (copies and memsets included under their own names), and the
     milliseconds in which the device ran at least one of them (the union
-    of their intervals: its busy time)."""
+    of their intervals: its busy time).
+
+    The window opens with ``TRACE_PREAMBLE`` empty spin kernels, left out
+    of what is returned: the records the profiler drops at a window's
+    start are theirs, not ``run()``'s.  A window that keeps none of them
+    may have lost ``run()``'s, and fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_PREAMBLE):
+            torch.cuda._sleep(0)
         out = run()
         torch.cuda.synchronize()
     # the raw device events: building the profiler's FunctionEvent tree
     # takes minutes over a served run's 500,000 launches
-    kern, spans = {}, []
+    kern, spans, preamble = {}, [], 0
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            if "spin_kernel" in ev.name():
+                preamble += 1
+                continue
             t0 = ev.start_ns()
             t1 = t0 + ev.duration_ns()
             kern.setdefault(ev.name(), []).append((t1 - t0) / 1e6)
             spans.append((t0, t1))
+    if not preamble:
+        fail(f"a traced window kept none of its {TRACE_PREAMBLE} preamble "
+             f"records: the profiler may have dropped the run's own")
     busy_ns, end = 0, float("-inf")
     for t0, t1 in sorted(spans):
         if t1 > end:
@@ -2656,19 +2709,14 @@ def train_phase(dev, card) -> tuple:
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t0
 
-        def bits(t):
-            width = {4: torch.int32, 2: torch.int16}
-            return t.view(width[t.element_size()]) \
-                if t.is_floating_point() else t
         checked = 0
         for a, b in zip(leaves(like), leaves(back)):
             if a.name in ("params__embed", "params__final_norm",
                           "opt__m__layers__wq", "opt__v__layers__wd",
                           "opt__step") or (a.name == "params__layers__wq"
                                            and a.index in (0, 15)):
-                if a.value.dtype != b.value.dtype or a.value.device != \
-                        b.value.device or not torch.equal(bits(a.value),
-                                                          bits(b.value)):
+                if a.value.device != b.value.device or \
+                        not equal_bits(a.value, b.value):
                     fail(f"checkpoint leaf {a.name}[{a.index}] differs")
                 checked += 1
         print(f"repro_torch.launch.train's run at full width, {TR_STEPS} "
@@ -2699,6 +2747,473 @@ def train_phase(dev, card) -> tuple:
     k7 = {"train_launches": k7_reduced,
           "train_backward_plain_ms": k7_bwd_ms}
     return k6, k7
+
+
+#: phase 16: the distribution layer (repro_torch.sharding, moe_mlp_shardmap).
+#: (a) phase 15's unreduced setup, one step with the int8 all-reduce over a
+#: one-rank NCCL group; (b) DIST_RANKS processes sharing the card over gloo,
+#: each with one Llama 3.2 1B decoder layer's gradient tree from seed
+#: DIST_SEED + rank; (d) one qwen2-moe-a2.7b MoE layer
+#: (src/repro_torch/configs/qwen2_moe_a2_7b.py unreduced) on 512 tokens as
+#: DIST_MOE_X rows; (e) Llama 3.2 1B's 16 decoder layers as one GPipe stage,
+#: DIST_MICRO microbatches of DIST_MB x 512 tokens
+DIST_RANKS, DIST_SEED = 4, 1000
+DIST_MOE_ARCH, DIST_MOE_X = "qwen2-moe-a2.7b", (4, 128)
+DIST_MICRO, DIST_MB = 4, 2
+#: (d) the one-rank card run in float32 against the CPU's (rtol = atol),
+#: and the 4 ranks' against the one rank's by relative error norm: the
+#: all-reduced partial sums add in another order
+DIST_MOE_TOL, DIST_MOE_REL = 1e-4, 1e-5
+#: (c) the quantization error is at most half a step of its block's scale;
+#: float32 rounds the quotient and the product by at most 127 * 2^-23 of a
+#: step, inside the 2^-12 allowed here
+DIST_ERR_STEPS = 0.5 + 2.0 ** -12
+#: seconds for the process groups' collectives and for the 4 ranks to end
+DIST_TIMEOUT_S = 300
+
+
+def layer_grads(shapes: dict, rank: int) -> dict:
+    """(b) a decoder layer's gradient tree, float32 on the host, from seed
+    DIST_SEED + rank: normal values, each leaf and each rank at its own
+    scale."""
+    import numpy as np
+    rng = np.random.default_rng(DIST_SEED + rank)
+    return {k: rng.standard_normal(shape, dtype=np.float32)
+            * np.float32(1e-3 * (i + 1) * (rank + 1))
+            for i, (k, shape) in enumerate(sorted(shapes.items()))}
+
+
+def np_compressed_mean(shards: list):
+    """The JAX package's ``compressed_psum`` arithmetic in numpy over the
+    ranks' host copies of one leaf: a shared block max, round half to
+    even, an int32 sum, ``q * scale / n``."""
+    import numpy as np
+    n = shards[0].size
+    blocks = [np.pad(s.reshape(-1), (0, (-n) % 256)).reshape(-1, 256)
+              for s in shards]
+    shared = np.max([np.abs(b).max(axis=-1, keepdims=True)
+                     for b in blocks], axis=0)
+    scale = np.maximum(shared / np.float32(127.0), np.float32(1e-12))
+    qsum = sum(np.clip(np.round(b / scale), -127, 127).astype(np.int8)
+               .astype(np.int32) for b in blocks)
+    mean = qsum.astype(np.float32) * scale / np.float32(len(shards))
+    return mean.reshape(-1)[:n].reshape(shards[0].shape)
+
+
+def moe_layer(dev, dtype, moe_shapes: dict, x_shape: tuple):
+    """(d) one MoE layer's leaves and its input from seed 0 on ``dev``,
+    rounded to bfloat16 and held in ``dtype``: normal values over the
+    square root of the fan-in, the same on every process."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = {}
+    for k, shape in sorted(moe_shapes.items()):
+        fan = shape[-2] if len(shape) > 1 else shape[0]
+        params[k] = (torch.randn(shape, generator=gen, device=dev)
+                     / fan ** 0.5).to(torch.bfloat16).to(dtype)
+    x = torch.randn(x_shape, generator=gen, device=dev)
+    return x.to(torch.bfloat16).to(dtype), params
+
+
+def dist_rank(rank, store_path, out_dir, dev_type, grad_shapes, moe_shapes,
+              x_shape, moe) -> None:
+    """Phase 16 (b) and (d) on one of DIST_RANKS processes that share the
+    card over gloo: the compressed all-reduce of this rank's layer
+    gradients, then ``moe_mlp_shardmap`` with E_pad / DIST_RANKS experts
+    a rank; saves both (on the host) to ``out_dir``."""
+    import datetime
+    import traceback
+    import torch
+    import torch.distributed as dist
+    try:
+        from repro_torch.models.moe import moe_mlp_shardmap
+        from repro_torch.sharding.compression import compressed_psum
+        dev = torch.device(dev_type)
+        if dev.type == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(store_path, DIST_RANKS), rank=rank,
+            world_size=DIST_RANKS,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+        try:
+            world = dist.group.WORLD
+            grads = {k: torch.from_numpy(v).to(dev)
+                     for k, v in layer_grads(grad_shapes, rank).items()}
+            reduced = {k: compressed_psum(v, world)
+                       for k, v in grads.items()}
+            x, params = moe_layer(dev, torch.float32, moe_shapes, x_shape)
+            y = moe_mlp_shardmap(x, params, moe, world)
+            out = {"b": {k: v.cpu() for k, v in reduced.items()},
+                   "d": y.cpu(),
+                   "devices": sorted({str(v.device) for v in
+                                      list(reduced.values()) + [y]})}
+        finally:
+            dist.destroy_process_group()
+        torch.save(out, os.path.join(out_dir, f"{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(out_dir, f"{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise SystemExit(1)
+
+
+def run_dist_ranks(tmp: str, *args) -> list:
+    """:func:`dist_rank` on DIST_RANKS spawned processes; fails unless
+    every one ends within DIST_TIMEOUT_S with its result saved."""
+    import multiprocessing as mp
+    import torch
+    out_dir = os.path.join(tmp, "ranks")
+    os.makedirs(out_dir)
+    store = os.path.join(tmp, "gloo_store")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=dist_rank, args=(r, store, out_dir) + args)
+             for r in range(DIST_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    for r in range(DIST_RANKS):
+        err = os.path.join(out_dir, f"{r}.err")
+        if os.path.exists(err):
+            with open(err) as f:
+                fail(f"rank {r} of {DIST_RANKS} failed:\n{f.read()}")
+    if hung:
+        fail(f"ranks {hung} of {DIST_RANKS} still ran after "
+             f"{DIST_TIMEOUT_S} s")
+    if any(p.exitcode != 0 for p in procs):
+        fail(f"the ranks' exit codes {[p.exitcode for p in procs]}")
+    return [torch.load(os.path.join(out_dir, f"{r}.pt"))
+            for r in range(DIST_RANKS)]
+
+
+def distribution_phase(dev, card) -> dict:
+    """Phase 16: the distribution layer on ``torch.distributed``: (a) the
+    int8 gradient all-reduce (``make_compressed_grad_transform``) inside
+    Llama 3.2 1B's full-width train step over a one-rank NCCL group, every
+    leaf bit-equal to the plain quantize -> dequantize, the updated
+    leaves bit-equal to the same step given those gradients, times and
+    the bytes its all-reduces move; (b) ``compressed_psum`` across 4
+    processes sharing the card over gloo, bit-equal to each other and to
+    a numpy emulation; (c) the quantization error of (a) within half a
+    step; (d) ``moe_mlp_shardmap`` at qwen2-moe-a2.7b's width, one rank
+    against the CPU and 4 ranks against one, timed against ``moe_mlp``,
+    the drops of both capacity rules; (e) ``gpipe`` over Llama 3.2 1B's
+    16 layers bit-equal to the model's own loop, K6 counted and traced.
+    Returns K6's keys of the kernels line."""
+    import datetime
+    import itertools
+    import shutil
+    import tempfile
+    from unittest import mock
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import init_params, layer_shapes
+    from repro_torch.models.model import _embed, forward
+    from repro_torch.models.moe import (capacity_of, dispatch, moe_mlp,
+                                        moe_mlp_shardmap, router_topk)
+    from repro_torch.models.transformer import layer_body
+    from repro_torch.models.tree import leaves, rebuild
+    from repro_torch.sharding.compression import (
+        BLOCK, _dequantize, _quantize, make_compressed_grad_transform)
+    from repro_torch.sharding.pipeline import gpipe, stage_split
+    from repro_torch.train import AdamWConfig, build_train_step, \
+        init_opt_state
+
+    phase("16 the distribution layer: the int8 gradient all-reduce in "
+          "Llama 3.2 1B's train step, moe_mlp_shardmap at qwen2-moe-a2.7b's "
+          "width, GPipe over Llama 3.2 1B's layers")
+    free_device_memory()
+    print(card)
+    cfg = get_config(TR_ARCH)
+    mcfg = get_config(DIST_MOE_ARCH)
+    moe_shapes = {k: v for k, v in layer_shapes(mcfg).items()
+                  if k in ("w_router", "wg", "wu", "wd", "sg", "su", "sd",
+                           "shared_gate")}
+    x_shape = DIST_MOE_X + (mcfg.d_model,)
+    tmp = tempfile.mkdtemp(prefix="repro_torch_dist_")
+    backend = {"cuda": "nccl", "cpu": "gloo"}[dev.type]
+    dist.init_process_group(
+        backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+        rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        group = dist.group.WORLD
+
+        # (a) the compressed all-reduce inside the full-width train step
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        n_params = sum(leaf.value.numel() for leaf in leaves(params))
+        data = DataConfig(vocab=cfg.vocab, seq_len=TR_SEQ,
+                          global_batch=TR_BATCH, seed=0)
+        tokens = SyntheticLM(data).batch_at(0)
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in tokens.items()}
+        opt_cfg = AdamWConfig(lr_peak=1e-3,
+                              warmup_steps=max(10, TR_STEPS // 20),
+                              total_steps=TR_STEPS)
+        opt = init_opt_state(params, opt_cfg)
+        compress = make_compressed_grad_transform(group, ())
+        seen, moved = {}, []
+        real_all_reduce = dist.all_reduce
+
+        def counted_all_reduce(t, *a, **kw):
+            moved.append((t.dtype, t.numel() * t.element_size(),
+                          t.device.type))
+            return real_all_reduce(t, *a, **kw)
+
+        def capture(g):
+            seen["raw"] = g
+            with mock.patch.object(dist, "all_reduce", counted_all_reduce):
+                seen["out"] = compress(g)
+            return seen["out"]
+        flash_attention.launches = 0
+        new_c, _, _ = build_train_step(cfg, opt_cfg, grad_transform=capture)(
+            params, opt, batch)
+        torch.cuda.synchronize()
+        n_k6_a = flash_attention.launches
+        if n_k6_a != cfg.n_layers:
+            fail(f"K6 launched {n_k6_a} times in the compressed train step, "
+                 f"not once a layer ({cfg.n_layers})")
+        if {d for _, _, d in moved} != {dev.type}:
+            fail(f"the all-reduces ran on {set(d for _, _, d in moved)}")
+        # every leaf against the plain quantize -> dequantize of its
+        # stacked gradient, bit for bit; (c) the error within half a step
+        plain, worst, n_el, n_stacked = [], 0.0, 0, 0
+        for (_, raw), (_, out) in zip(
+                itertools.groupby(leaves(seen["raw"]), key=lambda l: l.path),
+                itertools.groupby(leaves(seen["out"]), key=lambda l: l.path)):
+            raw, out = [l.value for l in raw], [l.value for l in out]
+            flat = torch.cat([p.reshape(-1) for p in raw])
+            q, scale = _quantize(flat)
+            want = _dequantize(q, scale, flat.shape, flat.numel())
+            got = torch.cat([p.reshape(-1) for p in out])
+            if not equal_bits(got, want):
+                fail(f"a compressed gradient leaf differs from the plain "
+                     f"quantize -> dequantize ({raw[0].shape} x {len(raw)})")
+            err = torch.nn.functional.pad((got - flat).abs(),
+                                          (0, (-flat.numel()) % BLOCK))
+            steps = float((err.view(-1, BLOCK) / scale).max())
+            if steps > DIST_ERR_STEPS:
+                fail(f"quantization error {steps} steps of a block's scale, "
+                     f"above {DIST_ERR_STEPS}")
+            worst = max(worst, steps)
+            n_el += flat.numel()
+            n_stacked += 1
+            plain += [w.view(p.shape) for p, w in zip(
+                raw, want.split([p.numel() for p in raw]))]
+        plain_tree = rebuild(seen["raw"], plain)
+        del seen, plain
+        # the same step handed those plain gradients: the same update
+        new_p, _, _ = build_train_step(
+            cfg, opt_cfg, grad_transform=lambda g: plain_tree)(
+            params, opt, batch)
+        torch.cuda.synchronize()
+        for a, b in zip(leaves(new_c), leaves(new_p)):
+            if not equal_bits(a.value, b.value):
+                fail(f"updated leaf {a.name}[{a.index}] differs from the "
+                     f"step given the plain quantized gradients")
+        del new_c, new_p
+        free_device_memory()
+        int32_b = sum(b for d, b, _ in moved if d == torch.int32)
+        max_b = sum(b for d, b, _ in moved if d == torch.float32)
+        if int32_b + max_b != sum(b for _, b, _ in moved):
+            fail(f"all-reduces of other dtypes: {set(d for d, _, _ in moved)}")
+
+        step_none = build_train_step(cfg, opt_cfg)
+        step_comp = build_train_step(cfg, opt_cfg, grad_transform=compress)
+
+        def step_ms(step) -> float:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(params, opt, batch)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+        step_ms(step_none)                        # warm-up
+        step_ms(step_comp)
+        times = {"none": [], "comp": []}
+        for which in ("none", "comp", "comp", "none") * 2:
+            times[which].append(step_ms(step_none if which == "none"
+                                        else step_comp))
+        transform_ms = cuda_ms(lambda: compress(plain_tree), 3)
+        del plain_tree, params, opt
+        free_device_memory()
+        print(card)
+        print(f"(a) the int8 gradient all-reduce in {TR_ARCH}'s train step "
+              f"at full width ({n_params} float32 gradient elements in "
+              f"{n_stacked} stacked leaves, one-rank {backend} group): "
+              f"every leaf bit-equal to the plain quantize -> dequantize, "
+              f"the updated leaves bit-equal to the step given those; "
+              f"{np.mean(times['comp']):.1f} ms a step with it against "
+              f"{np.mean(times['none']):.1f} ms without (each of "
+              f"{len(times['comp'])} steps in turns: "
+              f"{[round(t, 1) for t in times['comp']]} against "
+              f"{[round(t, 1) for t in times['none']]}); the transform "
+              f"alone {transform_ms:.2f} ms over the {n_el} elements; "
+              f"{n_k6_a} K6 launches in the step", flush=True)
+        print(f"(a) bytes handed to its all-reduces: {int32_b + max_b} "
+              f"({int32_b} as int32 sums of the padded int8 values, "
+              f"{max_b} as float32 block maxima) against "
+              f"{4 * n_el} for a float32 all-reduce of the gradient "
+              f"({(int32_b + max_b) / (4 * n_el):.4f}x) and "
+              f"{n_el + 4 * n_el // BLOCK} for int8 values with a float32 "
+              f"scale a block, as the JAX package's docstring counts them",
+              flush=True)
+        print(f"(c) quantization error at most {worst:.6f} of a step of "
+              f"its block's scale (limit {DIST_ERR_STEPS})", flush=True)
+
+        # (b) and the 4-rank half of (d): DIST_RANKS processes sharing
+        # the card over gloo
+        t0 = time.perf_counter()
+        grad_shapes = layer_shapes(cfg)
+        ranks = run_dist_ranks(tmp, dev.type, grad_shapes, moe_shapes,
+                               x_shape, mcfg.moe)
+        ranks_s = time.perf_counter() - t0
+        want_dev = [f"{dev.type}:0"] if dev.type == "cuda" else ["cpu"]
+        for r in ranks:
+            if r["devices"] != want_dev:
+                fail(f"a rank computed on {r['devices']}, not {want_dev}")
+        host = [layer_grads(grad_shapes, r) for r in range(DIST_RANKS)]
+        n_b = 0
+        for k in sorted(grad_shapes):
+            want = np_compressed_mean([h[k] for h in host]).view(np.int32)
+            for r in ranks:
+                if not np.array_equal(r["b"][k].numpy().view(np.int32),
+                                      want):
+                    fail(f"(b) leaf {k} of a rank differs from the numpy "
+                         f"emulation of the JAX arithmetic")
+            n_b += want.size
+        print(f"(b) compressed_psum across {DIST_RANKS} processes sharing "
+              f"the card over gloo, one {TR_ARCH} decoder layer's "
+              f"{len(grad_shapes)} gradient leaves ({n_b} elements) each: "
+              f"all {DIST_RANKS} results bit-equal to each other and to a "
+              f"numpy emulation (shared block max, round half to even, "
+              f"int32 sum, scale / {DIST_RANKS}); {ranks_s:.1f} s with the "
+              f"processes' start and (d)", flush=True)
+
+        # (d) moe_mlp_shardmap at qwen2-moe-a2.7b's width on one rank
+        moe = mcfg.moe
+        x, mp32 = moe_layer(dev, torch.float32, moe_shapes, x_shape)
+        y1 = moe_mlp_shardmap(x, mp32, moe, group)
+        cpu_group = dist.new_group(backend="gloo")
+        y_cpu = moe_mlp_shardmap(x.cpu(), {k: v.cpu() for k, v in
+                                           mp32.items()}, moe, cpu_group)
+        diff = float((y1.cpu() - y_cpu).abs().max())
+        if not bool(((y1.cpu() - y_cpu).abs() <= DIST_MOE_TOL
+                     + DIST_MOE_TOL * y_cpu.abs()).all()):
+            fail(f"(d) moe_mlp_shardmap on the card differs from the CPU's "
+                 f"by {diff}")
+        rels = [rel_norms(r["d"], y1.cpu())[0] for r in ranks]
+        if max(rels) > DIST_MOE_REL:
+            fail(f"(d) moe_mlp_shardmap on {DIST_RANKS} ranks against one: "
+                 f"relative error norms {rels}")
+        xb = x.to(torch.bfloat16)
+        pb = {k: v.to(torch.bfloat16) for k, v in mp32.items()}
+        del mp32
+        shard_ms = cuda_ms(lambda: moe_mlp_shardmap(xb, pb, moe, group), 10)
+        dense_ms = cuda_ms(lambda: moe_mlp(xb, pb, moe), 10)
+        _, experts = router_topk(xb, pb["w_router"], moe)
+        e_pad = pb["w_router"].shape[1]
+        b, s = DIST_MOE_X
+        cap_row, cap_t = capacity_of(s, moe), capacity_of(b * s, moe)
+        drop_row = int((~dispatch(experts, e_pad, cap_row)[1]).sum())
+        drop_t = int((~dispatch(experts.reshape(1, b * s, -1), e_pad,
+                                cap_t)[1]).sum())
+        entries = b * s * moe.top_k
+        del xb, pb, x, y1
+        free_device_memory()
+        print(card)
+        print(f"(d) moe_mlp_shardmap at {DIST_MOE_ARCH}'s width (d "
+              f"{mcfg.d_model}, {moe.n_experts} experts padded to {e_pad}, "
+              f"top {moe.top_k}, d_expert {moe.d_expert}, {moe.n_shared} "
+              f"shared experts of {moe.d_shared} in all; x {x_shape}): one "
+              f"rank (E_loc {e_pad}) in float32 against the CPU's within "
+              f"{DIST_MOE_TOL} (max |diff| {diff:.3e}); {DIST_RANKS} ranks "
+              f"over gloo (E_loc {e_pad // DIST_RANKS}) against one rank, "
+              f"relative error norms {[f'{v:.3e}' for v in rels]} (limit "
+              f"{DIST_MOE_REL}); in bfloat16 {shard_ms:.4f} ms a call "
+              f"against moe_mlp's {dense_ms:.4f} ms; entries dropped of "
+              f"{entries}: moe_mlp's rule (capacity {cap_row} an expert a "
+              f"row of {s} tokens) {drop_row}, moe_mlp_shardmap's (capacity "
+              f"{cap_t} an expert over the local batch's {b * s} tokens) "
+              f"{drop_t}", flush=True)
+
+        # (e) GPipe: Llama 3.2 1B's 16 layers as one stage
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dtype=torch.bfloat16, device=dev)
+        toks = torch.as_tensor(tokens["inputs"], device=dev).reshape(
+            DIST_MICRO, DIST_MB, TR_SEQ)
+        x_micro = torch.stack([_embed(params, cfg, t, torch.bfloat16)
+                               for t in toks])
+        kinds = cfg.layer_kinds()
+        stacked = {k: torch.stack([lp[k] for lp in params.layers])
+                   for k in params.layers[0].keys()}
+        stages = stage_split(stacked, 1)
+        q_pos = torch.arange(TR_SEQ, dtype=torch.int32,
+                             device=dev)[None].expand(DIST_MB, TR_SEQ)
+
+        def stage_fn(p, h):
+            for i in range(p["ln1"].shape[0]):
+                h, _, _ = layer_body(h, {k: v[i] for k, v in p.items()}, cfg,
+                                     q_pos=q_pos, is_global=bool(kinds[i]),
+                                     compute_dtype=torch.bfloat16)
+            return h
+        apply = gpipe(stage_fn, group)
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        y = apply(stages, x_micro)
+        torch.cuda.synchronize()
+        gpipe_ms = (time.perf_counter() - t0) * 1e3
+        n_k6_e = flash_attention.launches
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ref = torch.stack([forward(params, cfg, t,
+                                       compute_dtype=torch.bfloat16,
+                                       return_hidden=True) for t in toks])
+        torch.cuda.synchronize()
+        loop_ms = (time.perf_counter() - t0) * 1e3
+        want = DIST_MICRO * cfg.n_layers
+        if n_k6_e != want:
+            fail(f"(e) K6 launched {n_k6_e} times in gpipe, not {want}")
+        if not equal_bits(y, ref):
+            fail(f"(e) gpipe differs from the model's layer loop: max |diff| "
+                 f"{float((y.float() - ref.float()).abs().max())}")
+        # the profiler loses device records now and then (phase 15): no
+        # window may hold more K6 launches than counted, one must hold all
+        seen_k6 = []
+        for _ in range(TR_TRACE_WINDOWS):
+            flash_attention.launches = 0
+            _, kern, _ = device_kernels(lambda: apply(stages, x_micro))
+            seen_k6.append((launches_of(kern, "flash_attention_kernel"),
+                            flash_attention.launches))
+            if seen_k6[-1][0] == want:
+                break
+        if any(c != want or t > c for t, c in seen_k6) or \
+                seen_k6[-1][0] != want:
+            fail(f"(e) K6 in gpipe's traced windows (trace, counted): "
+                 f"{seen_k6}; want {want}")
+        del params, stacked, stages, x_micro, y, ref
+        free_device_memory()
+        print(card)
+        print(f"(e) gpipe over the one-rank group, {TR_ARCH}'s "
+              f"{cfg.n_layers} layers as one stage, {DIST_MICRO} "
+              f"microbatches of ({DIST_MB}, {TR_SEQ}) bfloat16: bit-equal "
+              f"to the model's own layer loop; {gpipe_ms:.1f} ms against "
+              f"the loop's {loop_ms:.1f} ms (first calls, host clock); "
+              f"{n_k6_e} K6 launches, traced windows (trace, counted) "
+              f"{seen_k6}", flush=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"dist_train_launches": n_k6_a, "dist_gpipe_launches": n_k6_e}
 
 
 def main() -> int:
@@ -3353,8 +3868,11 @@ def main() -> int:
     # -- 15: training at full width, K6 and K7 under autograd -------------
     p15_k6, p15_k7 = train_phase(dev, card)
 
-    # -- 16: the kernels line ---------------------------------------------
-    phase("16 the kernels line")
+    # -- 16: the distribution layer, K6 in (a) and (e) --------------------
+    p16 = distribution_phase(dev, card)
+
+    # -- 17: the kernels line ---------------------------------------------
+    phase("17 the kernels line")
     def bound(b, ops, peak=FP32_OPS_PER_S):
         t_b, t_o = b / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
@@ -3438,6 +3956,9 @@ def main() -> int:
     # K6 on the training path (phase 15): launches in the launcher's run,
     # its time at the training shape, its plain backward's
     kernels[-1].update(p15_k6)
+    # K6 in the distribution layer's phase 16: the compressed train step's
+    # forward (a) and gpipe's microbatches (e)
+    kernels[-1].update(p16)
     b_ms, by = bound(k7_bytes, k7_ops)
     kernels.append({"name": "mamba_scan_kernel (K7)", "route": "cuda",
                     "source": CSRC + "mamba_scan.cu",

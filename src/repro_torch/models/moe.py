@@ -1,8 +1,10 @@
 """Mixture-of-Experts layer with row-local capacity dispatch, in PyTorch.
 
-The port of the JAX package's ``repro.models.moe`` on its default path
-(``moe_combine="gather"``, ``moe_impl="pjit"``; the shard_map variant
-waits for the sharding slice).  The dispatch is per sequence (row):
+The port of the JAX package's ``repro.models.moe``: :func:`moe_mlp` on
+its default path (``moe_combine="gather"``, ``moe_impl="pjit"``) and
+:func:`moe_mlp_shardmap`, its explicit expert parallelism, on
+``torch.distributed``.  The dispatch of :func:`moe_mlp` is per sequence
+(row):
 
 1. router top-k per token (float32 logits, padded experts masked to
    ``-1e30``, softmax, top-k in ``lax.top_k``'s order: ties to the lower
@@ -24,15 +26,17 @@ d): one batched product an expert, the same sums.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .config import MoEConfig
 from .layers import mlp_swiglu, _silu
 
-__all__ = ["capacity_of", "dispatch", "moe_mlp", "router_topk"]
+__all__ = ["capacity_of", "dispatch", "moe_mlp", "moe_mlp_shardmap",
+           "router_topk"]
 
 #: the logit the JAX package gives padded experts
 PAD_LOGIT = -1e30
@@ -124,3 +128,108 @@ def moe_mlp(x: torch.Tensor, params: Dict[str, torch.Tensor],
         gate = 1 / (1 + torch.exp(-z))
         y = y + shared.float() * gate[..., None]
     return y.to(x.dtype)
+
+
+def _moe_groups(mesh_or_group, bp_axes: Sequence[str]):
+    """(the ``model`` group, the batch axes' groups major first)."""
+    if isinstance(mesh_or_group, dist.ProcessGroup):
+        if bp_axes:
+            raise ValueError("batch axes need a DeviceMesh, not a group")
+        return mesh_or_group, ()
+    return (mesh_or_group.get_group("model"),
+            tuple(mesh_or_group.get_group(a) for a in bp_axes))
+
+
+def moe_mlp_shardmap(x: torch.Tensor, params: Dict[str, torch.Tensor],
+                     moe: MoEConfig, mesh_or_group,
+                     bp_axes: Sequence[str] = ()) -> torch.Tensor:
+    """Explicit expert parallelism, the JAX package's ``shard_map`` path.
+
+    x: (B, S, d), the whole batch, the same on every rank; params as for
+    :func:`moe_mlp`, whole (expert stacks (E_pad, ...)) on every rank.
+    Each rank takes the rows its coordinate on ``bp_axes`` names (major
+    first) and its ``E_pad / n_model`` experts by its rank in the
+    ``model`` group, routes its local tokens to them (the router
+    replicated): a running count by local expert over the local batch's
+    ``t = B_l * S`` tokens, flattened (not per row, as :func:`moe_mlp`
+    counts), the capacity ``max(k, round(t*k/E * cf))``, drops at or past
+    it, the (E_loc, C, d) buffer, the SwiGLU experts, a float32 combine of
+    the partial token outputs and a SUM over ``model``.  The shared
+    experts and their gate run on the local rows as on the dense path;
+    the rows are gathered over ``bp_axes`` and the whole (B, S, d) is
+    returned on every rank.  ``mesh_or_group``: a ``DeviceMesh`` with a
+    ``model`` axis, or the ``model`` group itself (no batch axes).
+    """
+    model, bp = _moe_groups(mesh_or_group, bp_axes)
+    e_pad = params["w_router"].shape[1]
+    n_model = dist.get_world_size(model)
+    if e_pad % n_model:
+        raise ValueError(f"{e_pad} experts do not split over {n_model} "
+                         f"model ranks")
+    e_loc = e_pad // n_model
+    rank = dist.get_rank(model)
+    k = moe.top_k
+
+    b, s, d = x.shape
+    n_bp, row = 1, 0
+    for g in bp:
+        n_bp *= dist.get_world_size(g)
+        row = row * dist.get_world_size(g) + dist.get_rank(g)
+    if b % n_bp:
+        raise ValueError(f"a batch of {b} does not split over {n_bp} ranks")
+    b_l = b // n_bp
+    x_l = x[row * b_l:(row + 1) * b_l]
+    t = b_l * s
+    xt = x_l.reshape(t, d)
+    weights, experts = router_topk(x_l, params["w_router"], moe)
+    flat_e = experts.reshape(t * k)
+    flat_w = weights.reshape(t * k)
+    flat_t = torch.arange(t, device=x.device).repeat_interleave(k)
+
+    local_e = flat_e - rank * e_loc
+    mine = (local_e >= 0) & (local_e < e_loc)
+    local_e_c = torch.where(mine, local_e, 0)
+    # position within each local expert: exclusive running count
+    oh = F.one_hot(local_e_c, e_loc) * mine[:, None]
+    pos_all = torch.cumsum(oh, dim=0) - oh
+    pos = torch.gather(pos_all, 1, local_e_c[:, None])[:, 0]
+    capacity = int(max(k, round(t * k / moe.n_experts
+                                * moe.capacity_factor)))
+    keep = mine & (pos < capacity)
+
+    # the (E_loc, C, d) buffer and a spare slot for the dropped entries
+    gathered = torch.where(keep[:, None], xt[flat_t], 0).to(x.dtype)
+    buf = torch.zeros((e_loc, capacity + 1, d), dtype=x.dtype,
+                      device=x.device)
+    buf[local_e_c, torch.where(keep, pos, capacity)] = gathered
+    buf = buf[:, :capacity]
+
+    lo = slice(rank * e_loc, (rank + 1) * e_loc)
+    g = torch.bmm(buf, params["wg"][lo])
+    u = torch.bmm(buf, params["wu"][lo])
+    h = (_silu(g) * u).to(x.dtype)
+    out_buf = torch.bmm(h, params["wd"][lo])
+
+    part = out_buf[local_e_c, torch.where(keep, pos, 0)]
+    part = part.float() * (flat_w * keep)[:, None]
+    # each token's k entries added in order from a zero float32 sum
+    part = part.reshape(t, k, d)
+    y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    for j in range(k):
+        y = y + part[:, j]
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=model)
+    y = y.reshape(b_l, s, d).to(x.dtype)
+
+    # shared experts stay on the dense path (replicated weights)
+    if moe.n_shared and "sg" in params:
+        shared = mlp_swiglu(x_l, params["sg"], params["su"], params["sd"])
+        z = torch.matmul(x_l.float(), params["shared_gate"].float())
+        gate = 1 / (1 + torch.exp(-z))
+        y = y + (shared.float() * gate[..., None]).to(y.dtype)
+
+    # the whole batch on every rank: gather the rows, minor axis first
+    for g in reversed(bp):
+        parts = [torch.empty_like(y) for _ in range(dist.get_world_size(g))]
+        dist.all_gather(parts, y.contiguous(), group=g)
+        y = torch.cat(parts)
+    return y

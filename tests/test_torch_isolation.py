@@ -38,6 +38,10 @@ def test_import_leaves_jax_and_repro_out():
             "import repro_torch.checkpoint, repro_torch.models.tree\n"
             "import repro_torch.train, repro_torch.train.trainer\n"
             "import repro_torch.launch.train\n"
+            "import repro_torch.sharding, repro_torch.sharding.specs\n"
+            "import repro_torch.sharding.compression\n"
+            "import repro_torch.sharding.pipeline\n"
+            "import repro_torch.launch.mesh\n"
             "repro_torch.configs.get_config('llama3.2-1b')\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
