@@ -20,7 +20,10 @@ version:
 3. run the Explorer's front half (mine -> rank -> merge -> map) on the
    card's Explorer, lower every (variant, app) pair, group the pairs by
    bucket signature, and on every signature check the annealing kernel
-   (K2: delta, full and telemetry) against its plain version on the card —
+   (K2: delta, full and telemetry) against its plain version on the card
+   (in full depth on the signature with the most steps, on the first
+   ``HIER_CHECK_STEPS`` steps on the others: phase 4 holds every
+   signature's full-depth run card == CPU) —
    the starting per-net costs its prologue scores (K1's function, which
    has no launch of its own), slots, costs, accept counts and cost curves
    bit-equal — and time K2 and sum it over the signatures (one launch each
@@ -170,9 +173,13 @@ version:
    spliced ``ssm_h`` and ``ssm_conv`` must be bit-equal to that request's
    solo prefill and its first token the solo prefill's argmax; the two
    Mamba architectures (falcon-mamba-7b, hymba-1.5b) at ``.reduced()``
-   card == CPU (``card_vs_cpu``, K7 and K6 counted); and K7 alone at the
+   card == CPU (``card_vs_cpu``, K7 and K6 counted); K7 alone at the
    served shape (1, 512, 8192, 16) float32 with its final state, beside
-   its bound.  It prints the same serving numbers as phase 10;
+   its bound; and the perf flag ``ssm_impl="streamed"``: one 4096-token
+   prefill with K7 on chunks of 256 steps, the state carried, against
+   the materialized scan within the bfloat16 bound, K7 16 x 64 = 1024
+   times, counted and in the trace, its peak device memory beside the
+   materialized one's.  It prints the same serving numbers as phase 10;
 12. MoE serving at full width, the MoE MLP (``repro_torch.models.moe``)
    on the serving path: qwen2-moe-a2.7b unreduced (24 layers, d_model
    2048, 16 / 16 heads of 128, 60 experts padded to 64, top-4, d_expert
@@ -246,7 +253,11 @@ version:
    checkpoint of its state (14.8 GB) written and restored, each timed,
    compared bit for bit on a few leaves, its size and the free disk
    printed; (d) the trainer's fault injection on the card at the JAX
-   test's dims (1 restart, step 20, latest checkpoint 20);
+   test's dims (1 restart, step 20, latest checkpoint 20); (e) the perf
+   flags: the step with ``ce_impl="chunked"`` (4 chunks of 128) against
+   the default step, loss and every gradient within 2^-4, K6 16 times,
+   ms a step in turns and each step's peak memory, and a forward with
+   ``norm_dtype="bf16"`` within 2^-4 of the default one;
 16. the distribution layer (``repro_torch.sharding``,
    ``moe_mlp_shardmap``) over a one-rank NCCL group made from a
    ``FileStore`` and destroyed at the phase's end: (a) phase 15's
@@ -266,8 +277,18 @@ version:
    1e-5, timed against ``moe_mlp`` in bfloat16, the entries each
    capacity rule drops; (e) ``gpipe`` with Llama 3.2 1B's 16 layers as
    one stage on 4 microbatches of (2, 512), bit-equal to the model's own
-   layer loop, 64 K6 launches counted and in the trace;
-17. print one JSON line ``{"kernels": [...]}`` with launches, max |diff|,
+   layer loop, 64 K6 launches counted and in the trace; then over a new
+   one-rank group and a (1, 1) ``DeviceMesh``: (f) ``moe_impl=
+   "shard_map"`` makes the model's MLP call ``moe_mlp_shardmap``,
+   bit-equal to (d)'s direct call, and (g) Llama 3.2 1B's forward with
+   ``DTensor`` params and ``activation_shard_fn``'s callback is bit-equal
+   to the plain forward, K6 16 times;
+17. the roofline: phase 15's train step counted on meta tensors by
+   ``repro_torch.launch.hlo_cost`` (FLOPs, bytes, 6·N·D, useful ratio),
+   its compute, memory and bound terms at the H100's data-sheet peaks
+   beside phase 15's measured ms a step and its MFU; one single-pod
+   ``launch.dryrun.lower_cell`` (llama3.2-1b, train_4k), timed;
+18. print every phase's wall, then one JSON line ``{"kernels": [...]}`` with launches, max |diff|,
    times and bounds of K1-K7 (K1's row: its launches counted in the
    main path's trace, its ``ms`` K2 with zero steps, the kernel alone,
    against the bound of that launch's bytes, its ``timed`` key says so;
@@ -288,8 +309,11 @@ version:
    time at the training shape (8, 32/8, 512, 64) with its plain version,
    bound and SDPA, its plain backward a layer, the step's ms; K7's
    ``train_*``: launches in the reduced Mamba steps, its plain backward;
-   K6's ``dist_train_launches`` and ``dist_gpipe_launches`` its launches
-   in phase 16 (a) and (e)), then ``{"ok": true, "device": {...}}`` as the last line.
+   K6's ``dist_train_launches``, ``dist_gpipe_launches`` and
+   ``dist_shard_launches`` its launches in phase 16 (a), (e) and (g),
+   ``ce_chunked_launches`` in phase 15 (e)'s chunked step; K7's
+   ``stream_launches`` in phase 11's streamed prefill), then ``{"ok":
+   true, "device": {...}}`` as the last line.
 
 Any failure exits nonzero; no phase catches an error and carries on
 (phase 6 counts the configurations the port refuses with the reference's
@@ -374,10 +398,21 @@ def fail(msg: str) -> None:
 
 
 _T0 = time.perf_counter()
+#: (name, start in seconds from _T0) of every phase begun so far
+_PHASES = []
 
 
 def phase(name: str) -> None:
-    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
+    _PHASES.append((name, time.perf_counter() - _T0))
+    print(f"== {name} (at {_PHASES[-1][1]:.1f} s)", flush=True)
+
+
+def phase_walls() -> str:
+    """Each phase's wall so far (to the next phase's start, the last one's
+    to now), in seconds."""
+    ends = [t for _, t in _PHASES[1:]] + [time.perf_counter() - _T0]
+    return ", ".join(f"{name.split()[0]}: {end - start:.1f}"
+                     for (name, start), end in zip(_PHASES, ends))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1672,6 +1707,10 @@ MB_F32_REL = 1e-4
 #: the same in bfloat16, for every served prefill; a planted fault (each
 #: y_t read from h_{t-1}) must exceed it
 MB_BF16_REL = 2.0 ** -5
+#: the streamed scan (perf flag ssm_impl="streamed"): one prefill of this
+#: many tokens in chunks of MB_STREAM_CHUNK steps, against the default
+#: materialized scan, within MB_BF16_REL
+MB_STREAM_TOKENS, MB_STREAM_CHUNK = 4096, 256
 
 
 def mb_plain_scan(a, bx, c, **kw):
@@ -1799,6 +1838,7 @@ def mamba_phase(dev, card) -> dict:
         len(prompts), MB_NEW, MB_SLOTS,
         {"k7": ("mamba_scan_kernel", len(prompts) * cfg.n_layers)},
         cfg.vocab, solo)
+    stream = streamed_check(dev, card, cfg, bf16)
     del params, bf16, solo
     free_device_memory()
 
@@ -1827,7 +1867,98 @@ def mamba_phase(dev, card) -> dict:
     n = served["launches"]["k7"]
     return {"lm_launches": n, "lm_ms": k7["ms"], "lm_call_ms": k7["call_ms"],
             "lm_served_ms": served["device_ms"]["k7"] / n,
-            "lm_bound_ms": k7["bound_ms"]}
+            "lm_bound_ms": k7["bound_ms"], **stream}
+
+
+def streamed_check(dev, card, cfg, params) -> dict:
+    """Phase 11's perf-flag variant: one MB_STREAM_TOKENS-token prefill
+    with ``ssm_impl="streamed"`` (K7 on chunks of MB_STREAM_CHUNK steps,
+    the state carried) against the default materialized scan: logits and
+    cache within MB_BF16_REL, K7 launched once a chunk a layer, counted
+    and in the trace (up to 3 windows, none above the counter), each
+    prefill's ms and the peak device memory above what was held before."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import mamba_scan
+    from repro_torch.models import prefill
+    from repro_torch.models.perf_flags import reset_flags, set_flags
+    toks = torch.as_tensor(np.random.default_rng(11).integers(
+        0, cfg.vocab, MB_STREAM_TOKENS), device=dev)[None]
+
+    def run(**flags):
+        set_flags(**flags)
+        try:
+            return prefill(params, cfg, toks, smax=MB_STREAM_TOKENS,
+                           compute_dtype=torch.bfloat16)
+        finally:
+            reset_flags()
+    stream = dict(ssm_impl="streamed", ssm_chunk=MB_STREAM_CHUNK)
+    out = {}
+    for name, flags in (("materialized", {}), ("streamed", stream)):
+        run(**flags)                              # warm-up
+        free_device_memory()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mamba_scan.launches = 0
+        t0 = time.perf_counter()
+        got = run(**flags)
+        torch.cuda.synchronize()
+        out[name] = (got, (time.perf_counter() - t0) * 1e3,
+                     mamba_scan.launches,
+                     torch.cuda.max_memory_allocated() - base)
+    # the ms a prefill in turns, the allocator's cache warm
+    times = {"materialized": [], "streamed": []}
+    for name in ("materialized", "streamed", "streamed", "materialized"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(**(stream if name == "streamed" else {}))
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    chunks = -(-MB_STREAM_TOKENS // MB_STREAM_CHUNK)
+    want = chunks * cfg.n_layers
+    if (out["materialized"][2], out["streamed"][2]) != (cfg.n_layers, want):
+        fail(f"K7 launched {out['streamed'][2]} times in the streamed "
+             f"prefill (want {want}), {out['materialized'][2]} in the "
+             f"materialized one (want {cfg.n_layers})")
+    dep = prefill_departure(out["streamed"][0], out["materialized"][0])
+    if max(dep) > MB_BF16_REL:
+        fail(f"the streamed prefill departs from the materialized one: "
+             f"{dep} above {MB_BF16_REL}")
+    seen = []
+    for _ in range(LM_TRACE_WINDOWS):
+        mamba_scan.launches = 0
+        _, kern, _ = device_kernels(lambda: run(**stream))
+        seen.append((launches_of(kern, "mamba_scan_kernel"),
+                     mamba_scan.launches))
+        if seen[-1][0] == want:
+            break
+    if any(c != want or t > c for t, c in seen) or seen[-1][0] != want:
+        fail(f"K7 in the streamed prefill's traced windows (trace, "
+             f"counted): {seen}; want {want}")
+    ssm_bytes = MB_STREAM_TOKENS * cfg.ssm.expand * cfg.d_model \
+        * cfg.ssm.d_state * 4
+    print(card)
+    print(f"streamed scan (ssm_impl=\"streamed\", chunk "
+          f"{MB_STREAM_CHUNK}), a {MB_STREAM_TOKENS}-token bfloat16 "
+          f"prefill against the materialized scan: relative error norm "
+          f"logits {dep[0]:.3e}, over the cache {dep[1]:.3e} (limit "
+          f"{MB_BF16_REL}); K7 {out['streamed'][2]} launches ({chunks} "
+          f"chunks x {cfg.n_layers} layers), traced windows (trace, "
+          f"counted) {seen}; {ms['streamed']:.1f} ms against "
+          f"{ms['materialized']:.1f} ms a prefill (host clock, in turns: "
+          f"{[round(t, 1) for t in times['streamed']]} against "
+          f"{[round(t, 1) for t in times['materialized']]}); "
+          f"peak device memory above the weights {out['streamed'][3]} "
+          f"bytes against {out['materialized'][3]} (float32 da and dbx a "
+          f"layer: {ssm_bytes} bytes each materialized, "
+          f"{ssm_bytes * MB_STREAM_CHUNK // MB_STREAM_TOKENS} a chunk)",
+          flush=True)
+    return {"stream_launches": out["streamed"][2],
+            "stream_prefill_ms": ms["streamed"],
+            "materialized_prefill_ms": ms["materialized"],
+            "stream_peak_bytes": out["streamed"][3],
+            "materialized_peak_bytes": out["materialized"][3]}
 
 
 class PinnedRouting:
@@ -2400,6 +2531,9 @@ TR_ARCH, TR_BATCH, TR_SEQ, TR_STEPS = "llama3.2-1b", 8, 512, 10
 TR_BF16_REL = 2.0 ** -4
 #: traced windows of 3 steps in phase 15 (c)
 TR_TRACE_WINDOWS = 3
+#: phase 15's chunked cross entropy (perf flag ce_impl="chunked"): chunks
+#: of this many positions, 4 over a 512-token sequence's 511 predictions
+TR_CE_CHUNK = 128
 
 
 def k6_without_autograd(q, k, v, **kw):
@@ -2601,7 +2735,10 @@ def train_phase(dev, card) -> tuple:
     busy = busy_ms / (wall * 1e3)
     tokens = TR_BATCH * TR_SEQ
     peak = torch.cuda.max_memory_allocated()
-    del state, params, opt
+    del state
+    free_device_memory()
+    flagged = train_flags_check(dev, card, cfg, opt_cfg, params, opt, batch)
+    del params, opt
     free_device_memory()
 
     # K6 at the training shape, and the plain backward it runs
@@ -2743,10 +2880,112 @@ def train_phase(dev, card) -> tuple:
     k6 = {"train_launches": n_launcher, "train_ms": k6_ms,
           "train_plain_ms": fwd_plain, "train_bound_ms": k6_bound,
           "train_library_ms": lib_ms, "train_backward_plain_ms": bwd_ms,
-          "train_step_ms": step_ms}
+          "train_step_ms": step_ms, **flagged}
     k7 = {"train_launches": k7_reduced,
           "train_backward_plain_ms": k7_bwd_ms}
     return k6, k7
+
+
+def train_flags_check(dev, card, cfg, opt_cfg, params, opt, batch) -> dict:
+    """Phase 15's perf-flag variants at full width: the train step with
+    ``ce_impl="chunked"`` (TR_CE_CHUNK positions a chunk) against the
+    default step, the loss and every leaf's gradient within TR_BF16_REL,
+    K6 once a layer, ms a step in turns and each step's peak device
+    memory; then one forward with ``norm_dtype="bf16"`` against the
+    default forward within TR_BF16_REL."""
+    import torch
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import forward
+    from repro_torch.models.perf_flags import reset_flags, set_flags
+    from repro_torch.train import build_train_step
+    chunked = dict(ce_impl="chunked", ce_chunk=TR_CE_CHUNK)
+
+    def step_with(flags, capture=None, fresh=True):
+        """One step under ``flags``: (loss, K6 launches, peak bytes above
+        what was held before, ms).  ``fresh``: the allocator's cache
+        emptied first (a fair peak; the step then pays its allocations)."""
+        set_flags(**flags)
+        try:
+            if fresh:
+                free_device_memory()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            flash_attention.launches = 0
+            step = build_train_step(cfg, opt_cfg, grad_transform=capture)
+            t0 = time.perf_counter()
+            _, _, metrics = step(params, opt, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            return (loss, flash_attention.launches,
+                    torch.cuda.max_memory_allocated() - base,
+                    (time.perf_counter() - t0) * 1e3)
+        finally:
+            reset_flags()
+    grads = {}
+    for name, flags in (("full", {}), ("chunked", chunked)):
+        def capture(g, name=name):
+            grads[name] = g
+            return g
+        grads[name + "_run"] = step_with(flags, capture)
+    loss_c, n_c = grads["chunked_run"][:2]
+    loss_f = grads["full_run"][0]
+    if n_c != cfg.n_layers:
+        fail(f"K6 launched {n_c} times in the chunked-CE step, not once a "
+             f"layer ({cfg.n_layers})")
+    rel = grad_departures(grads["chunked"], grads["full"])
+    bad = train_check(loss_c, loss_f, rel)
+    worst = max((v, k) for k, v in rel.items() if k != "zero")
+    if bad:
+        fail(f"the chunked-CE step departs from the default step: {bad[:6]}")
+    del grads["chunked"], grads["full"]
+    # the peaks, each step from an emptied allocator cache; then the ms a
+    # step in turns, the cache warm
+    peaks = {w: step_with(f)[2] for w, f in (("full", {}),
+                                             ("chunked", chunked))}
+    times = {"full": [], "chunked": []}
+    for which in ("full", "chunked", "chunked", "full") * 2:
+        times[which].append(step_with(
+            chunked if which == "chunked" else {}, fresh=False)[3])
+    n_chunks = -(-(TR_SEQ - 1) // TR_CE_CHUNK)
+    logits_bytes = TR_BATCH * TR_SEQ * cfg.vocab * 4
+    print(card)
+    print(f"chunked cross entropy (ce_impl=\"chunked\", {n_chunks} chunks "
+          f"of {TR_CE_CHUNK}) in {TR_ARCH}'s full-width train step against "
+          f"the default: loss {loss_c:.6f} against {loss_f:.6f}, largest "
+          f"relative error norm of a leaf's gradient {worst[0]:.3e} "
+          f"({worst[1]}; limit {TR_BF16_REL}); {n_c} K6 launches; "
+          f"{sum(times['chunked']) / 4:.1f} ms a step against "
+          f"{sum(times['full']) / 4:.1f} ms (in turns: "
+          f"{[round(t, 1) for t in times['chunked']]} against "
+          f"{[round(t, 1) for t in times['full']]}); peak device memory "
+          f"above the weights and moments {peaks['chunked']} bytes "
+          f"against {peaks['full']} ({(peaks['full'] - peaks['chunked']) / 2 ** 30:.2f} "
+          f"GiB less; the float32 logits alone {logits_bytes} bytes)",
+          flush=True)
+    # the bfloat16 norm
+    with torch.no_grad():
+        want = forward(params, cfg, batch["inputs"])
+        set_flags(norm_dtype="bf16")
+        try:
+            got = forward(params, cfg, batch["inputs"])
+        finally:
+            reset_flags()
+    norm_rel = rel_norms(got, want)[0]
+    differ = not equal_bits(got, want)
+    del got, want
+    print(f"bfloat16 RMSNorm (norm_dtype=\"bf16\") in the full-width "
+          f"forward: logits' relative error norm {norm_rel:.3e} against the "
+          f"float32 norm (limit {TR_BF16_REL}); bits differ: {differ}",
+          flush=True)
+    if norm_rel > TR_BF16_REL or not differ:
+        fail(f"the bfloat16 norm's forward: relative error norm "
+             f"{norm_rel}, bits differ {differ}")
+    return {"ce_chunked_launches": n_c,
+            "ce_chunked_step_ms": sum(times["chunked"]) / 4,
+            "ce_full_step_ms": sum(times["full"]) / 4,
+            "ce_chunked_peak_bytes": peaks["chunked"],
+            "ce_full_peak_bytes": peaks["full"]}
 
 
 #: phase 16: the distribution layer (repro_torch.sharding, moe_mlp_shardmap).
@@ -3216,6 +3455,184 @@ def distribution_phase(dev, card) -> dict:
     return {"dist_train_launches": n_k6_a, "dist_gpipe_launches": n_k6_e}
 
 
+def shard_flags_check(dev, card) -> dict:
+    """Phase 16's perf-flag and callback checks over a one-rank group
+    (NCCL on the card) made from a ``FileStore`` and destroyed at the end:
+    (f) ``moe_impl="shard_map"`` with a registered (1, 1) ``DeviceMesh``
+    makes the model's MLP (``transformer._mlp``) call
+    ``moe_mlp_shardmap``, bit-equal to that call on the group, at
+    qwen2-moe-a2.7b's width in float32; (g) Llama 3.2 1B's bfloat16
+    forward with ``DTensor`` params on that mesh and
+    ``activation_shard_fn``'s callback, bit-equal to the plain forward, K6
+    once a layer.  Returns K6's key of the kernels line."""
+    import datetime
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import forward, init_params, layer_shapes
+    from repro_torch.models.moe import moe_mlp_shardmap
+    from repro_torch.models.perf_flags import reset_flags, set_flags, \
+        set_mesh
+    from repro_torch.models.transformer import _mlp
+    from repro_torch.sharding import (PartitionSpec, activation_shard_fn,
+                                      distribute_params, to_placements)
+    cfg, mcfg = get_config(TR_ARCH), get_config(DIST_MOE_ARCH)
+    moe_shapes = {k: v for k, v in layer_shapes(mcfg).items()
+                  if k in ("w_router", "wg", "wu", "wd", "sg", "su", "sd",
+                           "shared_gate")}
+    tmp = tempfile.mkdtemp(prefix="repro_torch_flags_")
+    backend = {"cuda": "nccl", "cpu": "gloo"}[dev.type]
+    dist.init_process_group(
+        backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+        rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh(dev.type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        # (f) moe_impl="shard_map" through the model's MLP
+        x, mp = moe_layer(dev, torch.float32, moe_shapes,
+                          DIST_MOE_X + (mcfg.d_model,))
+        want = moe_mlp_shardmap(x, mp, mcfg.moe, dist.group.WORLD)
+        set_mesh(mesh, ("data",))
+        set_flags(moe_impl="shard_map")
+        try:
+            got = _mlp(x, mp, mcfg, torch.float32)
+        finally:
+            reset_flags()
+            set_mesh(None, ())
+        if not equal_bits(got, want):
+            fail(f"(f) moe_impl=\"shard_map\" through the model's MLP "
+                 f"differs from moe_mlp_shardmap: max |diff| "
+                 f"{float((got - want).abs().max())}")
+        del x, mp, got, want
+        free_device_memory()
+        # (g) the shard callback on DTensor params
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dtype=torch.bfloat16, device=dev)
+        toks = torch.as_tensor(np.random.default_rng(16).integers(
+            0, cfg.vocab, (DIST_MB, TR_SEQ)), device=dev)
+        dparams = distribute_params(params, cfg, mesh, axis_size=1)
+        shard = activation_shard_fn(mesh, cfg, multi_pod=False)
+        flash_attention.launches = 0
+        with torch.no_grad(), implicit_replication():
+            dtok = distribute_tensor(toks, mesh, to_placements(
+                mesh, PartitionSpec("data", None)))
+            y_shard = forward(dparams, cfg, dtok,
+                              compute_dtype=torch.bfloat16,
+                              shard=shard).full_tensor()
+        n_k6 = flash_attention.launches
+        with torch.no_grad():
+            y_plain = forward(params, cfg, toks,
+                              compute_dtype=torch.bfloat16)
+        same = equal_bits(y_shard, y_plain)
+        diff = float((y_shard.float() - y_plain.float()).abs().max())
+        del params, dparams, y_shard, y_plain
+        free_device_memory()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if n_k6 != cfg.n_layers or not same:
+        fail(f"(g) the forward with the shard callback on a (1, 1) mesh: "
+             f"{n_k6} K6 launches, bit-equal {same} (max |diff| {diff})")
+    print(card)
+    print(f"(f) moe_impl=\"shard_map\" with a registered (1, 1) "
+          f"{backend} mesh: the model's MLP (transformer._mlp) at "
+          f"{DIST_MOE_ARCH}'s width bit-equal to moe_mlp_shardmap on the "
+          f"group; (g) {TR_ARCH}'s bfloat16 forward of ({DIST_MB}, "
+          f"{TR_SEQ}) tokens with DTensor params on that mesh and "
+          f"activation_shard_fn's callback bit-equal to the plain forward, "
+          f"{n_k6} K6 launches", flush=True)
+    return {"dist_shard_launches": n_k6}
+
+
+#: phase 17: phase 15's step (TR_BATCH x TR_SEQ tokens, one rank)
+#: counted on meta tensors by repro_torch.launch.hlo_cost, beside phase
+#: 15's measured ms a step; then one single-pod dry-run cell
+RF_CELL = ("llama3.2-1b", "train_4k")
+
+
+def roofline_phase(card, step_ms: float) -> dict:
+    """Phase 17: ``hlo_cost.analyze`` of phase 15's exact train step
+    (Llama 3.2 1B at full width, TR_BATCH x TR_SEQ tokens, one rank) on
+    meta tensors: its FLOPs, bytes, ``model_flops`` (6·N·D) and
+    ``useful_ratio``, the compute, memory and bound terms at the H100's
+    data-sheet peaks beside phase 15's measured ``step_ms``, and the
+    step's MFU, ``model_flops / (step_s x 989e12)``; then one single-pod
+    ``lower_cell`` (``RF_CELL``) on the fake 256-rank mesh, timed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, hlo_cost, roofline
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    from repro_torch.models.transformer import _build
+    from repro_torch.train import AdamWConfig, build_train_step, \
+        init_opt_state
+
+    phase("17 the roofline: phase 15's step counted on meta tensors, and "
+          "a dry-run cell")
+    cfg = get_config(TR_ARCH)
+    params = _build(cfg, lambda path, name, shape: torch.empty(
+        shape, dtype=torch.float32, device="meta"))
+    opt_cfg = AdamWConfig(lr_peak=1e-3, warmup_steps=max(10, TR_STEPS // 20),
+                          total_steps=TR_STEPS)
+    opt = init_opt_state(params, opt_cfg)
+    toks = torch.empty((TR_BATCH, TR_SEQ), dtype=torch.int64, device="meta")
+    batch = {"inputs": toks, "targets": toks}
+    t0 = time.perf_counter()
+    cost = hlo_cost.analyze(build_train_step(cfg, opt_cfg), params, opt,
+                            batch)
+    count_s = time.perf_counter() - t0
+    mflops = roofline.model_flops(cfg, "train", TR_BATCH, TR_SEQ)
+    rl = roofline.Roofline(
+        arch=TR_ARCH, shape=f"train {TR_BATCH}x{TR_SEQ}", mesh="one rank",
+        chips=1, flops_per_device=cost.flops, bytes_per_device=cost.bytes,
+        collective_bytes_per_device=cost.collective_bytes,
+        model_flops=mflops)
+    mfu = mflops / (step_ms / 1e3 * PEAK_FLOPS_BF16)
+    dots = cost.flops_by_opcode.get("dot", 0.0)
+    if not (cost.flops > 0 and cost.bytes > 0 and 0.3 < rl.useful_ratio
+            <= 1.5 and dots > 0):
+        fail(f"phase 15's step counted {cost.flops} FLOPs ({dots} in "
+             f"products), {cost.bytes} bytes, useful ratio "
+             f"{rl.useful_ratio}")
+    print(card)
+    print(f"phase 15's step counted on meta tensors in {count_s:.1f} s: "
+          f"{cost.flops:.6e} FLOPs ({dots:.6e} in products, "
+          f"{cost.flops_by_opcode.get('flash_attention_cost', 0.0):.6e} "
+          f"in K6, {cost.flops_by_opcode.get('flash_attention_backward_cost', 0.0):.6e} "
+          f"in K6's plain backward), {cost.bytes:.6e} bytes; model_flops "
+          f"6·N·D = {mflops:.6e} (N {roofline.count_params(cfg)}, D "
+          f"{TR_BATCH * TR_SEQ}), useful ratio {rl.useful_ratio:.4f}; at "
+          f"the data-sheet peaks compute {rl.compute_s * 1e3:.3f} ms, "
+          f"memory {rl.memory_s * 1e3:.3f} ms ({PEAK_FLOPS_BF16:.3g} "
+          f"FLOP/s, {HBM_BW:.3g} B/s): bound {rl.bound_s * 1e3:.3f} ms "
+          f"({rl.dominant}), against the measured {step_ms:.1f} ms a step "
+          f"(phase 15): {100 * rl.bound_s * 1e3 / step_ms:.1f}% of it; "
+          f"MFU {100 * mfu:.2f}%", flush=True)
+    t0 = time.perf_counter()
+    cell = dryrun.lower_cell(*RF_CELL, multi_pod=False, verbose=False)
+    cell_s = time.perf_counter() - t0
+    if cell["status"] != "ok":
+        fail(f"the dry-run cell {RF_CELL}: {cell}")
+    print(f"dry-run cell {RF_CELL} on the fake 256-rank mesh (counted "
+          f"against H100 data-sheet peaks, no card) in {cell_s:.1f} s: "
+          f"dominant {cell['dominant']}, bound "
+          f"{max(cell['compute_s'], cell['memory_s'], cell['collective_s']) * 1e3:.3f} "
+          f"ms (compute {cell['compute_s'] * 1e3:.3f}, memory "
+          f"{cell['memory_s'] * 1e3:.3f}, collective "
+          f"{cell['collective_s'] * 1e3:.3f}), useful ratio "
+          f"{cell['useful_ratio']:.4f}", flush=True)
+    return {"roofline_flops": cost.flops, "roofline_bytes": cost.bytes,
+            "model_flops": mflops, "useful_ratio": rl.useful_ratio,
+            "bound_ms": rl.bound_s * 1e3, "mfu": mfu, "cell_s": cell_s}
+
+
 def main() -> int:
     import torch
 
@@ -3311,6 +3728,10 @@ def main() -> int:
     max_err = {"k1": 0.0, "k2": 0.0}
     per_sig = []
     largest = None
+    # K2 is held to its plain version in full depth on the signature with
+    # the most steps, and on the first HIER_CHECK_STEPS steps elsewhere
+    # (phase 4 holds every signature's full-depth run card == CPU)
+    deepest = max(sorted(groups), key=lambda s: s[0])
     for sig in sorted(groups):
         items = groups[sig]
         probs = [p for _, p in items]
@@ -3324,14 +3745,17 @@ def main() -> int:
         pnc0_plain = pnr_cost.net_hpwl_rows_plain(
             d["prob"], d["slot0"], d["slot_xy"], d["net_pins"],
             d["net_mask"])
-        errs = k2_vs_plain(d, f"signature {sig}")
+        depth = None if sig == deepest else HIER_CHECK_STEPS
+        errs = k2_vs_plain(d, f"signature {sig}", depth)
         max_err["k1"] = max(max_err["k1"], errs[0])
         max_err["k2"] = max(max_err["k2"], errs[1])
         k2_ms = cuda_ms(lambda: pnr_cost.anneal_chains(*args), 2)
         pairs = [f"{pe}/{app}" for (pe, app), _ in items]
         per_sig.append((sig, pairs, k2_ms))
         print(f"  {'x'.join(map(str, sig))}: {pairs} K2's starting costs "
-              f"(K1) == plain, K2 delta/full/telemetry == plain; K2 "
+              f"(K1) == plain, K2 delta/full/telemetry == plain "
+              f"({'full depth' if depth is None else f'first {depth} steps'}"
+              f"); K2 "
               f"{k2_ms:.4f} ms "
               f"({1e3 * k2_ms / sig[0]:.4f} us a step)", flush=True)
         if largest is None or sig[0] > largest[0][0]:
@@ -3868,11 +4292,15 @@ def main() -> int:
     # -- 15: training at full width, K6 and K7 under autograd -------------
     p15_k6, p15_k7 = train_phase(dev, card)
 
-    # -- 16: the distribution layer, K6 in (a) and (e) --------------------
+    # -- 16: the distribution layer, K6 in (a), (e) and (g) ---------------
     p16 = distribution_phase(dev, card)
+    p16.update(shard_flags_check(dev, card))
 
-    # -- 17: the kernels line ---------------------------------------------
-    phase("17 the kernels line")
+    # -- 17: phase 15's step counted, its roofline and MFU ---------------
+    p17 = roofline_phase(card, p15_k6["train_step_ms"])
+
+    # -- 18: the kernels line ---------------------------------------------
+    phase("18 the kernels line")
     def bound(b, ops, peak=FP32_OPS_PER_S):
         t_b, t_o = b / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
@@ -3995,6 +4423,8 @@ def main() -> int:
         if row["ms"] < row["bound_ms"]:
             fail(f"{row['name']} reads {row['ms']} ms, below its bound of "
                  f"{row['bound_ms']} ms: the bound is miscounted")
+    print(f"phase walls (s): {phase_walls()}", flush=True)
+    print(f"the roofline (phase 17): {json.dumps(p17)}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

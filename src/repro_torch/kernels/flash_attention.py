@@ -24,7 +24,9 @@ grad mode is on), K6 runs inside a ``torch.autograd.Function`` whose
 backward recomputes the function with :func:`attention_plain` and
 differentiates that: the JAX package has no backward kernel either.  A
 launch with no operand requiring a gradient (serving) is the bare
-kernel, as before.
+kernel, as before.  On ``DTensor`` operands it runs once a rank on the
+local shards, and on meta tensors it is one cost op that a counter
+charges K6's own work (``kernels.sharded``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ import torch
 
 from ..device import resolve_device
 from .pnr_cost import _ptr, _stream
+from .sharded import (attention_backward_meta, attention_dtensor,
+                      attention_meta, is_dtensor)
 
 __all__ = ["MAX_HEAD_DIM", "NEG_INF", "attention_plain", "flash_attention"]
 
@@ -162,10 +166,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     rows, 32 or 64 keys) and ignores them; the plain version steps over
     keys ``bk`` at a time.
     """
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if is_dtensor(q, k, v):
+        return attention_dtensor(lambda ql, kl, vl: flash_attention(
+            ql, kl, vl, bq=bq, bk=bk, device=ql.device, **kw), q, k, v)
+    if all(isinstance(t, torch.Tensor) and t.is_meta for t in (q, k, v)):
+        _check_args(q, k, v)
+        kw["scale"] = float(scale or 1.0 / math.sqrt(q.shape[-1]))
+        return _dispatch(q, k, v, kw)
     dev = resolve_device(device)
     q, k, v = (torch.as_tensor(t, device=dev) for t in (q, k, v))
     _check_args(q, k, v)
-    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if dev.type != "cuda":
         return attention_plain(q, k, v, bk=bk, **kw)
     b, hq, s, d = q.shape
@@ -191,7 +202,10 @@ def _dispatch(q, k, v, kw):
 
 def _launch(q, k, v, *, causal: bool, window: int, softcap: float,
             scale: float) -> torch.Tensor:
-    """One launch of K6 on checked CUDA operands; counts it."""
+    """One launch of K6 on checked CUDA operands; counts it.  On meta
+    operands, the cost op (no launch)."""
+    if q.is_meta:
+        return attention_meta(q, k, v, causal, window)
     b, hq, s, d = q.shape
     dev = q.device
     dp = d
@@ -235,6 +249,12 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
+        if grad_out.is_meta:                # the dry run: one cost op
+            grads = attention_backward_meta(*ctx.saved_tensors, grad_out,
+                                            ctx.kw["causal"],
+                                            ctx.kw["window"])
+            return tuple(g if need else None for g, need in
+                         zip(grads, ctx.needs_input_grad)) + (None,)
         q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
         with torch.enable_grad():
             out = attention_plain(q, k, v, **ctx.kw)

@@ -19,7 +19,10 @@ tensors it launches K7 or raises; for CPU tensors it runs
 mode is on), K7 runs inside a ``torch.autograd.Function`` whose backward
 recomputes the scan with :func:`mamba_scan_plain` and differentiates
 that (the JAX package has no backward kernel either); with no operand
-requiring a gradient (serving) the launch is the bare kernel.
+requiring a gradient (serving) the launch is the bare kernel.  On
+``DTensor`` operands it runs once a rank on the local shards, and on meta
+tensors it is one cost op that a counter charges K7's own work
+(``kernels.sharded``).
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ import torch
 
 from ..device import resolve_device
 from .pnr_cost import _ptr, _stream
+from .sharded import (is_dtensor, scan_backward_meta, scan_dtensor,
+                      scan_meta)
 
 __all__ = ["MAX_STATE", "mamba_scan", "mamba_scan_plain"]
 
@@ -104,6 +109,13 @@ def mamba_scan(a, bx, c, *, h0=None, return_state: bool = False,
     ``device="cpu"``.  ``bs`` and ``bd`` are the reference's block sizes,
     accepted and ignored: they change no result.
     """
+    if is_dtensor(a, bx, c, h0):
+        return scan_dtensor(lambda a_, b_, c_, h_: mamba_scan(
+            a_, b_, c_, h0=h_, return_state=return_state,
+            device=a_.device), a, bx, c, h0, return_state)
+    if all(isinstance(t, torch.Tensor) and t.is_meta for t in (a, bx, c)):
+        _check_args(a, bx, c, h0)
+        return _dispatch(a, bx, c, h0, return_state)
     dev = resolve_device(device)
     a, bx, c = (torch.as_tensor(t, device=dev) for t in (a, bx, c))
     if h0 is not None:
@@ -134,7 +146,10 @@ def _dispatch(a, bx, c, h0, return_state: bool):
 
 
 def _launch(a, bx, c, h0, return_state: bool):
-    """One launch of K7 on checked CUDA operands; counts it."""
+    """One launch of K7 on checked CUDA operands; counts it.  On meta
+    operands, the cost op (no launch)."""
+    if a.is_meta:
+        return scan_meta(a, bx, c, h0, return_state)
     b, s, d, n = a.shape
     dev = a.device
     a, bx, c = a.contiguous(), bx.contiguous(), c.contiguous()
@@ -172,6 +187,13 @@ class _MambaScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads_out):
+        if ctx.saved_tensors[0].is_meta:    # the dry run: one cost op
+            a = ctx.saved_tensors[0]
+            gy = grads_out[0] if grads_out[0] is not None else \
+                a.new_zeros(a.shape[:3], dtype=torch.float32)
+            got = scan_backward_meta(*ctx.saved_tensors, gy)
+            return tuple(g if need else None for g, need in
+                         zip(got, ctx.needs_input_grad)) + (None,)
         saved = [None if t is None else t.detach().requires_grad_()
                  for t in ctx.saved_tensors]
         ins = [t for t in saved if t is not None]

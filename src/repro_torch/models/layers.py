@@ -9,6 +9,12 @@ flash-attention kernel (K6, ``repro_torch.kernels.ops.attention``) does
 not take: decode (one query against the cache) and cross-attention
 (query and key lengths differ).  Self-attention with equal query and key
 lengths goes to K6 (``transformer._attention``).
+
+The JAX package's perf-flag variants are here too (``models.perf_flags``):
+``rms_norm`` with ``norm_dtype="bf16"`` (elementwise math in bfloat16, the
+variance in float32) and :func:`blockwise_attention_qouter` (q-tiles
+outside, ``blockwise_attention`` inside, pad queries at position
+``2**30``).
 """
 
 from __future__ import annotations
@@ -19,7 +25,11 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["apply_rope", "blockwise_attention", "mlp_geglu", "mlp_gelu",
+from ..kernels.sharded import blockwise_dtensor, is_dtensor
+from .perf_flags import get_flags
+
+__all__ = ["apply_rope", "blockwise_attention",
+           "blockwise_attention_qouter", "mlp_geglu", "mlp_gelu",
            "mlp_swiglu", "rms_norm", "rope_tables", "soft_cap", "softplus"]
 
 #: the position given to keys and queries that no mask may admit
@@ -30,6 +40,13 @@ NEG_INF = -1e30
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
              *, plus_one: bool = False) -> torch.Tensor:
     dt = x.dtype
+    if get_flags().norm_dtype == "bf16" and dt == torch.bfloat16:
+        # the square in bfloat16, then float32 for the mean; rsqrt cast to
+        # bfloat16 and the products in bfloat16, in the JAX package's order
+        var = torch.square(x).float().mean(dim=-1, keepdim=True)
+        inv = torch.rsqrt(var + eps).to(dt)
+        scale = (1.0 + w).to(dt) if plus_one else w.to(dt)
+        return x * inv * scale
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
@@ -109,8 +126,16 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, Sq, Hq, D);  k/v: (B, Skv, Hkv, D);
     q_pos: (B, Sq) absolute positions; kv_pos: (B, Skv).
     ``window`` (an int) masks keys older than ``window`` positions (local
-    attention); None/0 = full.  Returns (B, Sq, Hq, D) in q.dtype.
+    attention); None/0 = full.  Returns (B, Sq, Hq, D) in q.dtype.  On
+    ``DTensor`` operands it runs once a rank on the local shards
+    (``kernels.sharded``).
     """
+    if is_dtensor(q, k, v, q_pos, kv_pos):
+        return blockwise_dtensor(
+            lambda *t: blockwise_attention(
+                *t[:3], q_pos=t[3], kv_pos=t[4], causal=causal,
+                window=window, softcap=softcap, scale=scale, chunk=chunk),
+            q, k, v, q_pos, kv_pos)
     b, sq, hq, d = q.shape
     skv = k.shape[1]
     scale = scale or (1.0 / math.sqrt(d))
@@ -146,6 +171,29 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     acc, m, l = carry
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.transpose(1, 2).to(q.dtype)
+
+
+def blockwise_attention_qouter(q, k, v, *, q_pos, kv_pos, causal=True,
+                               window=None, softcap=0.0, scale=0.0,
+                               q_chunk=512, kv_chunk=512):
+    """The flash loop order: q-tiles of ``q_chunk`` outside,
+    :func:`blockwise_attention` over kv chunks of ``kv_chunk`` inside, so
+    the float32 accumulator is (B, H, q_chunk, D), made anew a tile.  The
+    last tile is padded with zero queries at position ``2**30``, cut off
+    after.  Shapes as :func:`blockwise_attention`'s."""
+    b, sq, hq, d = q.shape
+    q_chunk = min(q_chunk, sq)
+    nq = -(-sq // q_chunk)
+    pad = nq * q_chunk - sq
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        q_pos = F.pad(q_pos, (0, pad), value=FAR)
+    outs = [blockwise_attention(
+        q[:, i * q_chunk:(i + 1) * q_chunk], k, v,
+        q_pos=q_pos[:, i * q_chunk:(i + 1) * q_chunk], kv_pos=kv_pos,
+        causal=causal, window=window, softcap=softcap, scale=scale,
+        chunk=kv_chunk) for i in range(nq)]
+    return torch.cat(outs, dim=1)[:, :sq]
 
 
 # -- MLPs ------------------------------------------------------------------------

@@ -1,7 +1,10 @@
 """Model-level entry points: forward / prefill / decode_step.
 
-The port of the JAX package's ``repro.models.model``, with its signatures
-(less the sharding callback).  Layers run in a Python loop over
+The port of the JAX package's ``repro.models.model``, with its signatures,
+the ``shard`` callback included (``sharding.specs.activation_shard_fn``;
+the default returns its argument): the residual stream is placed under
+``"hidden"`` after the embedding and each sublayer, ``forward``'s logits
+under ``"logits"``, as the JAX package places them.  Layers run in a Python loop over
 ``params.layers``; VLM backbones run groups of ``cross_attn_every - 1``
 self-attention layers, each followed by one cross-attention layer.  The
 entry points run where ``params`` lie; tokens (or, for
@@ -24,12 +27,14 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..kernels.sharded import batch_only, divisible, is_dtensor
 from .config import ArchConfig
 from .layers import blockwise_attention, rms_norm, soft_cap
-from .transformer import (DecoderLM, _mlp, _n_self, _to_torch,
-                          cross_layer_body, layer_body)
+from .transformer import (DecoderLM, ShardFn, _mlp, _n_self, _noshard,
+                          _to_torch, cross_layer_body, layer_body)
 
 __all__ = ["cache_from_reference", "cache_shapes", "cache_to_numpy",
            "decode_step", "forward", "init_cache", "prefill"]
@@ -42,7 +47,15 @@ def _embed(params: DecoderLM, cfg: ArchConfig, tokens_or_embeds,
         x = torch.as_tensor(tokens_or_embeds, device=dev).to(compute_dtype)
     else:
         toks = torch.as_tensor(tokens_or_embeds, device=dev).long()
-        x = params.embed[toks].to(compute_dtype)
+        if is_dtensor(params.embed):
+            # the vocab-parallel lookup DTensor has strategies for, forward
+            # and backward (its index_put backward fails in some versions),
+            # its masked partial sums reduced at once
+            x = F.embedding(toks, params.embed)
+            x = x.redistribute(x.device_mesh, batch_only(x.placements))
+            x = x.to(compute_dtype)
+        else:
+            x = params.embed[toks].to(compute_dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype)
     return x
@@ -78,6 +91,19 @@ def _enc(params: DecoderLM, enc, compute_dtype):
     return torch.as_tensor(enc, device=params.embed.device).to(compute_dtype)
 
 
+def _placed_like(cache, x):
+    """``cache`` as ``x`` is placed: for a ``DTensor`` residual stream x
+    (B, S, d), every leaf but ``len`` a ``DTensor`` with its batch dim
+    (1) sharded as x's dim 0, the rest replicated; else ``cache``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return cache
+    from torch.distributed.tensor import distribute_tensor
+    pl = [Shard(1) if p == Shard(0) else Replicate() for p in x.placements]
+    return {k: v if k == "len" else distribute_tensor(v, x.device_mesh, pl)
+            for k, v in cache.items()}
+
+
 def _layer_cache(cache, i: int):
     """Layer ``i``'s (k, v) cache, or None for an attention-free model."""
     return (cache["k"][i], cache["v"][i]) if "k" in cache else None
@@ -96,20 +122,23 @@ def _set_ssm_state(cache, states) -> None:
 
 def forward(params: DecoderLM, cfg: ArchConfig, tokens, *,
             enc=None, compute_dtype=torch.bfloat16,
-            return_hidden: bool = False) -> torch.Tensor:
+            return_hidden: bool = False,
+            shard: ShardFn = _noshard) -> torch.Tensor:
     b, s = tokens.shape[:2]
-    x = _embed(params, cfg, tokens, compute_dtype)
+    x = shard(_embed(params, cfg, tokens, compute_dtype), "hidden")
     q_pos = _positions(b, s, 0, x.device)
     enc_c = _enc(params, enc, compute_dtype) if cfg.n_cross_layers else None
     for i, is_global, cross in _groups(cfg):
         x, _, _ = layer_body(x, params.layers[i], cfg, q_pos=q_pos,
-                             is_global=is_global, compute_dtype=compute_dtype)
+                             is_global=is_global, compute_dtype=compute_dtype,
+                             shard=shard)
         if cross is not None:
             x = cross_layer_body(x, params.cross_layers[cross], cfg, enc_c,
-                                 q_pos=q_pos, compute_dtype=compute_dtype)
+                                 q_pos=q_pos, compute_dtype=compute_dtype,
+                                 shard=shard)
     if return_hidden:
         return x
-    return _unembed(params, cfg, x)
+    return shard(_unembed(params, cfg, x), "logits")
 
 
 # ---------------------------------------------------------------------------
@@ -139,9 +168,10 @@ def cache_shapes(cfg: ArchConfig, batch: int, smax: int,
 
 def init_cache(cfg: ArchConfig, batch: int, smax: int,
                dtype=torch.bfloat16, *, device="cuda") -> Dict[str, Any]:
-    """Zeroed caches on ``device``; ``len`` is a 0-d int32 tensor on the
-    host."""
-    device = resolve_device(device)
+    """Zeroed caches on ``device`` (``"meta"`` allowed: shapes only);
+    ``len`` is a 0-d int32 tensor on the host."""
+    device = torch.device(device) if str(device) == "meta" else \
+        resolve_device(device)
     cache: Dict[str, Any] = {}
     for key, (shape, dt) in cache_shapes(cfg, batch, smax, dtype).items():
         cache[key] = torch.zeros(shape, dtype=dt,
@@ -150,13 +180,15 @@ def init_cache(cfg: ArchConfig, batch: int, smax: int,
 
 
 def prefill(params: DecoderLM, cfg: ArchConfig, tokens, *, smax: int,
-            enc=None, compute_dtype=torch.bfloat16
+            enc=None, compute_dtype=torch.bfloat16,
+            shard: ShardFn = _noshard
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Returns (last-position logits (B, V), filled caches)."""
     b, s = tokens.shape[:2]
-    x = _embed(params, cfg, tokens, compute_dtype)
+    x = shard(_embed(params, cfg, tokens, compute_dtype), "hidden")
     q_pos = _positions(b, s, 0, x.device)
-    cache = init_cache(cfg, b, smax, compute_dtype, device=x.device)
+    cache = _placed_like(init_cache(cfg, b, smax, compute_dtype,
+                                    device=x.device), x)
     enc_c = _enc(params, enc, compute_dtype) if cfg.n_cross_layers else None
     hd = cfg.head_dim_of
     has_ssm = cfg.mixer != "attn"
@@ -167,20 +199,18 @@ def prefill(params: DecoderLM, cfg: ArchConfig, tokens, *, smax: int,
                               is_global=is_global,
                               cache=_layer_cache(cache, i), cache_len=0,
                               return_state=has_ssm,
-                              compute_dtype=compute_dtype)
+                              compute_dtype=compute_dtype, shard=shard)
         if has_ssm:
             states.append(st)
         if cross is not None:
             lp = params.cross_layers[cross]
             # the cross layer's K/V, cached for decode
-            cache["cross_k"][cross] = torch.matmul(
-                enc_c, lp["wk"].to(compute_dtype)).reshape(b, -1, cfg.n_kv,
-                                                           hd)
-            cache["cross_v"][cross] = torch.matmul(
-                enc_c, lp["wv"].to(compute_dtype)).reshape(b, -1, cfg.n_kv,
-                                                           hd)
+            for key, w in (("cross_k", "wk"), ("cross_v", "wv")):
+                kv = divisible(torch.matmul(enc_c, lp[w].to(compute_dtype)),
+                               -1, cfg.n_kv)
+                cache[key][cross] = kv.reshape(b, -1, cfg.n_kv, hd)
             x = cross_layer_body(x, lp, cfg, enc_c, q_pos=q_pos,
-                                 compute_dtype=compute_dtype)
+                                 compute_dtype=compute_dtype, shard=shard)
     _set_ssm_state(cache, states)
     cache["len"] = torch.tensor(s, dtype=torch.int32)
     logits = _unembed(params, cfg, x[:, -1:])[:, 0]
@@ -192,7 +222,7 @@ def prefill(params: DecoderLM, cfg: ArchConfig, tokens, *, smax: int,
 # ---------------------------------------------------------------------------
 
 def decode_step(params: DecoderLM, cfg: ArchConfig, token, cache, *,
-                compute_dtype=torch.bfloat16
+                compute_dtype=torch.bfloat16, shard: ShardFn = _noshard
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """token: (B,) ints (or (B, 1, D) embeddings).  Returns (logits (B,V),
     the cache with the token's keys and values written in place, the
@@ -217,7 +247,8 @@ def decode_step(params: DecoderLM, cfg: ArchConfig, token, cache, *,
         x, _, st = layer_body(x, params.layers[i], cfg, q_pos=q_pos,
                               is_global=is_global,
                               cache=_layer_cache(cache, i), cache_len=pos,
-                              ssm_state=state, compute_dtype=compute_dtype)
+                              ssm_state=state, compute_dtype=compute_dtype,
+                              shard=shard)
         if has_ssm:
             states.append(st)
         if cross is not None:

@@ -21,7 +21,14 @@ its default path (``moe_combine="gather"``, ``moe_impl="pjit"``) and
 4. optional dense shared experts gated by a sigmoid (qwen2-moe).
 
 The buffer is laid out (E, B*C, d) where the JAX package has (B, E, C,
-d): one batched product an expert, the same sums.
+d): one batched product an expert, the same sums.  The ``shard`` callback
+names the buffers as the JAX package names its own: ``"moe_buf"`` for the
+dispatch buffer (and, with ``perf_flags.moe_combine="gather"``, the
+expert outputs), ``"moe_h"`` for the experts' hidden activations (and,
+with ``"sharded"``, the expert outputs: the JAX package's code tests
+``== "sharded"``, which the port keeps).  The specs behind the names
+(``sharding.specs.activation_shard_fn``) are written for the port's
+layout.
 """
 
 from __future__ import annotations
@@ -32,8 +39,11 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..kernels.sharded import (as_dtensor, batch_only, is_dtensor,
+                               replicated)
 from .config import MoEConfig
 from .layers import mlp_swiglu, _silu
+from .perf_flags import get_flags
 
 __all__ = ["capacity_of", "dispatch", "moe_mlp", "moe_mlp_shardmap",
            "router_topk"]
@@ -79,23 +89,21 @@ def dispatch(experts: torch.Tensor, e_pad: int, capacity: int
     return pos, pos < capacity
 
 
-def moe_mlp(x: torch.Tensor, params: Dict[str, torch.Tensor],
-            moe: MoEConfig) -> torch.Tensor:
-    """x: (B, S, d).  params: w_router (d, E_pad); wg/wu (E_pad, d,
-    d_expert); wd (E_pad, d_expert, d); optional shared experts sg/su (d,
-    d_shared), sd (d_shared, d), shared_gate (d,)."""
+def _route(x, w_router, moe: MoEConfig):
+    """The row-local dispatch of x (B, S, d): (the (E, B*C, d) expert
+    buffer, each (token, choice)'s row in it (B, S*k), and its router
+    weight, zero where dropped, (B, S*k) float32)."""
     b, s, d = x.shape
-    e_pad = params["w_router"].shape[1]
+    e_pad = w_router.shape[1]
     k = moe.top_k
     sk = s * k
-
-    weights, experts = router_topk(x, params["w_router"], moe)     # (B,S,k)
+    weights, experts = router_topk(x, w_router, moe)               # (B,S,k)
     capacity = capacity_of(s, moe)
     pos, keep = dispatch(experts, e_pad, capacity)                  # (B, S*k)
     flat_e = experts.reshape(b, sk)
     flat_w = weights.reshape(b, sk)
 
-    # ---- row-local dispatch into (E, B*C) rows, one spare row for drops --
+    # ---- into (E, B*C) rows, one spare row for drops ------------------------
     rows = torch.arange(b, device=x.device)[:, None]
     slot = (flat_e * b + rows) * capacity                           # (B, S*k)
     dest = torch.where(keep, slot + pos, e_pad * b * capacity)
@@ -104,22 +112,81 @@ def moe_mlp(x: torch.Tensor, params: Dict[str, torch.Tensor],
     buf = torch.zeros((e_pad * b * capacity + 1, d), dtype=x.dtype,
                       device=x.device)
     buf[dest.reshape(-1)] = gathered.reshape(-1, d)
-    buf = buf[:-1].view(e_pad, b * capacity, d)
+    return (buf[:-1].view(e_pad, b * capacity, d),
+            slot + torch.where(keep, pos, 0), (flat_w * keep).float())
+
+
+def _combine(out_buf, src, wk, s: int, k: int):
+    """Each token's k expert outputs weighted by the router and added in
+    order from a zero float32 sum: (B, S, d) float32."""
+    b, d = src.shape[0], out_buf.shape[-1]
+    expert_out = out_buf.reshape(-1, d)[src.reshape(-1)].reshape(b, s * k, d)
+    expert_out = expert_out * wk[..., None]
+    expert_out = expert_out.reshape(b, s, k, d)
+    y = torch.zeros((b, s, d), dtype=torch.float32, device=out_buf.device)
+    for j in range(k):
+        y = y + expert_out[:, :, j]
+    return y
+
+
+def _route_dtensor(x, w_router, moe: MoEConfig):
+    """:func:`_route` of a ``DTensor`` x, a batch shard a rank (its rows
+    whole, so each rank's dispatch is the rows' own): the buffer (E, B*C,
+    d) with its B*C dim sharded as x's batch, the rows and weights (B,
+    S*k) as x's batch."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = x.device_mesh
+    xp = batch_only(x.placements)
+    bufp = [Shard(1) if p == Shard(0) else p for p in xp]
+    # the router's gradient: each batch shard's part, summed over them
+    wgrad = [Partial() if p == Shard(0) else Replicate() for p in xp]
+    return local_map(lambda x_, w_: _route(x_, w_, moe),
+                     out_placements=(bufp, list(xp), list(xp)),
+                     in_placements=(xp, replicated(mesh)),
+                     in_grad_placements=(xp, wgrad),
+                     device_mesh=mesh)(
+        x.redistribute(mesh, xp), as_dtensor(w_router, mesh).redistribute(
+            mesh, replicated(mesh)))
+
+
+def _combine_dtensor(out_buf, src, wk, s: int, k: int):
+    """:func:`_combine` with the expert outputs gathered over the experts
+    and each rank combining its batch shard."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = src.device_mesh
+    xp = batch_only(src.placements)
+    bufp = [Shard(1) if p == Shard(0) else p for p in xp]
+    return local_map(lambda o, r, w: _combine(o, r, w, s, k),
+                     out_placements=list(xp), in_placements=(bufp, xp, xp),
+                     device_mesh=mesh)(
+        out_buf.redistribute(mesh, bufp), src, wk)
+
+
+def moe_mlp(x: torch.Tensor, params: Dict[str, torch.Tensor],
+            moe: MoEConfig, shard=lambda x, name: x) -> torch.Tensor:
+    """x: (B, S, d).  params: w_router (d, E_pad); wg/wu (E_pad, d,
+    d_expert); wd (E_pad, d_expert, d); optional shared experts sg/su (d,
+    d_shared), sd (d_shared, d), shared_gate (d,).  ``shard(t, name)``
+    places the (E, B*C, .) buffers."""
+    s, k = x.shape[1], moe.top_k
+    if is_dtensor(x):
+        buf, src, wk = _route_dtensor(x, params["w_router"], moe)
+    else:
+        buf, src, wk = _route(x, params["w_router"], moe)
+    buf = shard(buf, "moe_buf")
 
     # ---- expert compute ------------------------------------------------------
     g = torch.bmm(buf, params["wg"])
     u = torch.bmm(buf, params["wu"])
-    h = (_silu(g) * u).to(x.dtype)
+    h = shard((_silu(g) * u).to(x.dtype), "moe_h")
     out_buf = torch.bmm(h, params["wd"]).to(x.dtype)
-
-    # ---- combine: each token's k choices added in order ------------------------
-    src = (slot + torch.where(keep, pos, 0)).reshape(-1)
-    expert_out = out_buf.reshape(-1, d)[src].reshape(b, sk, d)
-    expert_out = expert_out * (flat_w * keep).float()[..., None]
-    expert_out = expert_out.reshape(b, s, k, d)
-    y = torch.zeros((b, s, d), dtype=torch.float32, device=x.device)
-    for j in range(k):
-        y = y + expert_out[:, :, j]
+    out_buf = shard(out_buf, "moe_h" if get_flags().moe_combine == "sharded"
+                    else "moe_buf")
+    y = (_combine_dtensor if is_dtensor(out_buf) else _combine)(
+        out_buf, src, wk, s, k)
 
     # ---- shared experts (qwen2-moe) -------------------------------------------
     if moe.n_shared and "sg" in params:

@@ -6,15 +6,28 @@ feeds bfloat16 activations into float32 weights), the depthwise causal
 convolution is the same sum over taps in the operands' dtype, and
 ``dt`` goes through ``layers.softplus`` (JAX's op sequence).
 
-Prefill (S > 1) discretizes in float32 (``da = exp(dt * a)``, ``dbx = (dt
-* x) * B``, each (B, S, d_inner, N)) and runs the selective scan on K7
-(``repro_torch.kernels.mamba_scan.mamba_scan``, imported by name here so
-that a check can swap it; its plain version for tensors on the CPU), from
-the carried state and returning the last one when asked.  Decode (S == 1)
-is the one-step recurrence in plain PyTorch, as the JAX package has no
-kernel for it either.  The JAX package's perf-flag variants of the scan
-(``_ssm_scan_sequential``, ``_ssm_scan_streamed``) are not ported: they
-come with the flags and the launcher that sets them.
+Prefill (S > 1) runs the JAX package's three variants, chosen by
+``perf_flags.ssm_impl``:
+
+* ``"materialized"`` (the default) discretizes in float32 (``da = exp(dt
+  * a)``, ``dbx = (dt * x) * B``, each (B, S, d_inner, N)) and runs the
+  selective scan on K7 (``repro_torch.kernels.mamba_scan.mamba_scan``,
+  imported by name here so that a check can swap it; its plain version
+  for tensors on the CPU) once, from the carried state and returning the
+  last one when asked;
+* ``"streamed"`` discretizes ``ssm_chunk`` steps at a time and runs K7 on
+  each chunk, the state carried from one chunk's ``h_out`` to the next
+  one's ``h0``, so ``da``/``dbx`` are (B, chunk, d_inner, N) and never
+  (B, S, d_inner, N); with ``ssm_state_dtype="bf16"`` they are rounded
+  to bfloat16 where the JAX package rounds them and K7 reads them back
+  as float32 (the JAX package combines them in a bfloat16 associative
+  scan instead);
+* ``"sequential"`` is the per-step recurrence in plain PyTorch, as in the
+  JAX package, which has no kernel for it either (K7 needs the
+  discretized inputs this variant exists to avoid).
+
+Decode (S == 1) is the one-step recurrence in plain PyTorch, as the JAX
+package has no kernel for it either.
 """
 
 from __future__ import annotations
@@ -23,10 +36,12 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.mamba_scan import mamba_scan
 from .config import SSMConfig
 from .layers import _silu, softplus
+from .perf_flags import get_flags
 
 __all__ = ["discretize", "mamba_mixer"]
 
@@ -46,6 +61,48 @@ def discretize(dt: torch.Tensor, xi: torch.Tensor, bmat: torch.Tensor,
     da = torch.exp(dt.to(f32)[..., None] * a[None, None])
     dbx = (dt * xi).to(f32)[..., None] * bmat.to(f32)[:, :, None, :]
     return da, dbx
+
+
+def _scan_sequential(dt, bmat, cmat, xi, a, h0):
+    """The per-step recurrence: the state expanded and y contracted a step
+    at a time, nothing with an (S, d_inner, N) extent formed.  dt, xi (B,
+    S, di); bmat, cmat (B, S, N); a (di, N); h0 (B, di, N) float32.
+    Returns y (B, S, di) float32 and the last state."""
+    f32 = torch.float32
+    h, ys = h0, []
+    for t in range(dt.shape[1]):
+        da = torch.exp(dt[:, t].to(f32)[..., None] * a[None])
+        h = da * h + (dt[:, t] * xi[:, t]).to(f32)[..., None] \
+            * bmat[:, t].to(f32)[:, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, cmat[:, t].to(f32)))
+    return torch.stack(ys, dim=1), h
+
+
+def _scan_streamed(dt, bmat, cmat, xi, a, h0, *, chunk: int,
+                   state_dtype=torch.float32):
+    """K7 a chunk of ``chunk`` steps at a time, each chunk discretized on
+    its own and, with ``state_dtype`` bfloat16, rounded to it; the state
+    carried across chunks.  Under autograd each chunk is checkpointed (its
+    ``da``/``dbx`` made again in the backward), as the JAX package's scan
+    body is.  Arguments as :func:`_scan_sequential`'s (``h0`` may be
+    None: zero).  Returns y (B, S, di) float32 and the last state."""
+    f32 = torch.float32
+
+    def one(dt_c, x_c, b_c, c_c, h):
+        da, dbx = discretize(dt_c, x_c, b_c, a)
+        if state_dtype != f32:
+            da, dbx = da.to(state_dtype).to(f32), dbx.to(state_dtype).to(f32)
+        return mamba_scan(da, dbx, c_c.to(f32), h0=h, return_state=True,
+                          device=dt_c.device)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (dt, bmat, cmat, xi, a))
+    h, ys = h0, []
+    for c0 in range(0, dt.shape[1], chunk):
+        args = tuple(t[:, c0:c0 + chunk] for t in (dt, xi, bmat, cmat))
+        y, h = (checkpoint(one, *args, h, use_reentrant=False) if grad
+                else one(*args, h))
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
 
 
 def mamba_mixer(x: torch.Tensor, params: Dict[str, torch.Tensor],
@@ -90,13 +147,23 @@ def mamba_mixer(x: torch.Tensor, params: Dict[str, torch.Tensor],
 
     f32 = torch.float32
     h0 = state["h"] if state is not None else None
-    da, dbx = discretize(dt, xi, bmat, a)                     # (B,S,di,N)
+    flags = get_flags()
     if s == 1:                                     # decode: one step
+        da, dbx = discretize(dt, xi, bmat, a)
         if h0 is None:
             h0 = torch.zeros((b, di, n), dtype=f32, device=x.device)
         h_last = da[:, 0] * h0 + dbx[:, 0]
         y = torch.einsum("bdn,bn->bd", h_last, cmat[:, 0].to(f32))[:, None]
-    else:                                          # prefill: K7
+    elif flags.ssm_impl == "sequential":
+        if h0 is None:
+            h0 = torch.zeros((b, di, n), dtype=f32, device=x.device)
+        y, h_last = _scan_sequential(dt, bmat, cmat, xi, a, h0)
+    elif flags.ssm_impl == "streamed":
+        sdt = torch.bfloat16 if flags.ssm_state_dtype == "bf16" else f32
+        y, h_last = _scan_streamed(dt, bmat, cmat, xi, a, h0,
+                                   chunk=flags.ssm_chunk, state_dtype=sdt)
+    else:                                          # materialized: K7 once
+        da, dbx = discretize(dt, xi, bmat, a)                 # (B,S,di,N)
         out = mamba_scan(da, dbx, cmat.to(f32), h0=h0,
                          return_state=return_state, device=x.device)
         y, h_last = out if return_state else (out, None)

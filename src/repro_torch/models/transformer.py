@@ -17,13 +17,25 @@ flash-attention kernel K6 through ``repro_torch.kernels.ops.attention``
 JAX package computes over its ``smax`` cache: there the keys past the
 prompt carry position ``2**30`` and fall outside the causal mask, and a
 global layer's window ``2**30`` admits every key, as window 0 does.
-Decode and cross-attention run the port's ``layers.blockwise_attention``.
+Decode and cross-attention run the port's ``layers.blockwise_attention``
+(its ``chunk`` the flag ``attn_kv_chunk``), or, with the flag
+``attention_impl="q_outer"`` and more than ``attn_q_chunk`` queries,
+``layers.blockwise_attention_qouter``, as the JAX package chooses; a
+prefill with no cache stays on K6 under that flag, since K6 already runs
+in q-outer order (``models.perf_flags``).  With ``moe_impl="shard_map"``
+and a mesh registered by ``perf_flags.set_mesh``, an MoE layer's MLP is
+``moe.moe_mlp_shardmap``.
+
+Sharding is injected as the JAX package injects it: an optional
+``shard(x, name)`` callback (``sharding.specs.activation_shard_fn``),
+applied to the residual stream (``"hidden"``) after each sublayer and
+passed to the MoE MLP; the default :func:`_noshard` returns ``x``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,10 +43,13 @@ from torch import nn
 
 from ..device import resolve_device
 from ..kernels.ops import attention
+from ..kernels.sharded import constrain, divisible, is_dtensor
 from .config import ArchConfig
-from .layers import (FAR, apply_rope, blockwise_attention, mlp_gelu,
-                     mlp_geglu, mlp_swiglu, rms_norm, rope_tables)
-from .moe import moe_mlp
+from .layers import (FAR, apply_rope, blockwise_attention,
+                     blockwise_attention_qouter, mlp_gelu, mlp_geglu,
+                     mlp_swiglu, rms_norm, rope_tables)
+from .moe import moe_mlp, moe_mlp_shardmap
+from .perf_flags import get_flags, get_mesh
 from .ssm import mamba_mixer
 
 __all__ = ["CrossLayer", "DecoderLM", "DecoderLayer", "cast_for_compute",
@@ -43,6 +58,11 @@ __all__ = ["CrossLayer", "DecoderLM", "DecoderLayer", "cast_for_compute",
            "params_from_reference"]
 
 Shapes = Dict[str, Tuple[int, ...]]
+ShardFn = Callable[[torch.Tensor, str], torch.Tensor]
+
+
+def _noshard(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x
 
 #: the matrices the JAX package casts to ``compute_dtype`` at every use;
 #: norm weights and gates it reads in float32
@@ -330,7 +350,7 @@ def cast_for_compute(params: DecoderLM, cfg: ArchConfig,
 
 def _attention(x, lp, cfg: ArchConfig, *, q_pos, is_global: bool,
                kv_override=None, cache=None, cache_len: Optional[int] = None,
-               compute_dtype=torch.bfloat16):
+               compute_dtype=torch.bfloat16, shard: ShardFn = _noshard):
     """Self/cross attention.  Returns (out, cache).
 
     ``cache`` is a layer's (k, v) of (B, Smax, Hkv, hd); the fresh keys and
@@ -338,7 +358,9 @@ def _attention(x, lp, cfg: ArchConfig, *, q_pos, is_global: bool,
     b, s, d = x.shape
     hd = cfg.head_dim_of
     hq, hkv = cfg.n_heads, cfg.n_kv
-    q = torch.matmul(x, lp["wq"].to(compute_dtype)).reshape(b, s, hq, hd)
+    # a DTensor's heads dim must split evenly over its ranks
+    q = divisible(torch.matmul(x, lp["wq"].to(compute_dtype)), -1, hq
+                  ).reshape(b, s, hq, hd)
     if kv_override is not None:
         src = kv_override
         src_pos = torch.arange(src.shape[1], dtype=torch.int32,
@@ -348,8 +370,10 @@ def _attention(x, lp, cfg: ArchConfig, *, q_pos, is_global: bool,
         src = x
         src_pos = q_pos
         causal = True
-    k = torch.matmul(src, lp["wk"].to(compute_dtype)).reshape(b, -1, hkv, hd)
-    v = torch.matmul(src, lp["wv"].to(compute_dtype)).reshape(b, -1, hkv, hd)
+    k = divisible(torch.matmul(src, lp["wk"].to(compute_dtype)), -1, hkv
+                  ).reshape(b, -1, hkv, hd)
+    v = divisible(torch.matmul(src, lp["wv"].to(compute_dtype)), -1, hkv
+                  ).reshape(b, -1, hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
         k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
@@ -381,19 +405,36 @@ def _attention(x, lp, cfg: ArchConfig, *, q_pos, is_global: bool,
             pos = torch.arange(smax, dtype=torch.int32, device=x.device)
             kv_pos = torch.where(pos <= cache_len + s - 1, pos,
                                  FAR)[None].expand(b, smax)
-        out = blockwise_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
-                                  causal=causal, window=win or None,
-                                  softcap=cfg.attn_softcap,
-                                  scale=cfg.attn_scale)
+        flags = get_flags()
+        kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=causal,
+                  window=win or None, softcap=cfg.attn_softcap,
+                  scale=cfg.attn_scale)
+        if flags.attention_impl == "q_outer" and s > flags.attn_q_chunk:
+            out = blockwise_attention_qouter(
+                q, k, v, q_chunk=flags.attn_q_chunk,
+                kv_chunk=flags.attn_kv_chunk, **kw)
+        else:
+            out = blockwise_attention(q, k, v, chunk=flags.attn_kv_chunk,
+                                      **kw)
     out = out.reshape(b, s, hq * hd)
+    if is_dtensor(out):
+        # its gradient placed as the heads were: a shard of hq * hd that
+        # splits no head (wo's backward gives one that may)
+        out = constrain(out, out.placements)
     out = torch.matmul(out, lp["wo"].to(compute_dtype))
     return out, cache
 
 
-def _mlp(x, lp, cfg: ArchConfig, compute_dtype=torch.bfloat16):
+def _mlp(x, lp, cfg: ArchConfig, compute_dtype=torch.bfloat16,
+         shard: ShardFn = _noshard):
     if cfg.moe is not None:
-        return moe_mlp(x, {k: lp[k].to(compute_dtype)
-                           for k in _moe_shapes(cfg) if k in lp}, cfg.moe)
+        mp = {k: lp[k].to(compute_dtype) for k in _moe_shapes(cfg) if k in lp}
+        if get_flags().moe_impl == "shard_map" and get_mesh() is not None:
+            mesh, bp_axes = get_mesh()
+            return moe_mlp_shardmap(x, mp, cfg.moe, mesh, bp_axes)
+        if shard is _noshard:          # the MoE MLP's own call, unplaced
+            return moe_mlp(x, mp, cfg.moe)
+        return moe_mlp(x, mp, cfg.moe, shard=shard)
     if not cfg.d_ff:
         return torch.zeros_like(x)
     if cfg.mlp == "gelu":
@@ -406,7 +447,8 @@ def _mlp(x, lp, cfg: ArchConfig, compute_dtype=torch.bfloat16):
 
 def layer_body(x, lp, cfg: ArchConfig, *, q_pos, is_global: bool,
                cache=None, cache_len: Optional[int] = None, ssm_state=None,
-               return_state: bool = False, compute_dtype=torch.bfloat16):
+               return_state: bool = False, compute_dtype=torch.bfloat16,
+               shard: ShardFn = _noshard):
     """One decoder layer.  Returns (x, cache, new SSM state): the state
     (``{"conv", "h"}``) when the layer has the Mamba mixer and
     ``ssm_state`` is given (decode) or ``return_state`` is set (prefill,
@@ -416,7 +458,7 @@ def layer_body(x, lp, cfg: ArchConfig, *, q_pos, is_global: bool,
     if cfg.mixer != "mamba":
         mix, new_cache = _attention(
             h, lp, cfg, q_pos=q_pos, is_global=is_global, cache=cache,
-            cache_len=cache_len, compute_dtype=compute_dtype)
+            cache_len=cache_len, compute_dtype=compute_dtype, shard=shard)
     if cfg.mixer != "attn":
         sp = {k[len("ssm_"):]: _as_used(cfg, k, v, compute_dtype)
               for k, v in lp.items() if k.startswith("ssm_")}
@@ -425,20 +467,22 @@ def layer_body(x, lp, cfg: ArchConfig, *, q_pos, is_global: bool,
         ssm_out, new_state = out if want else (out, None)
         # hymba: the two heads on the same normed input, averaged
         mix = ssm_out if cfg.mixer == "mamba" else 0.5 * (mix + ssm_out)
-    x = x + mix.to(x.dtype)
+    x = shard(x + mix.to(x.dtype), "hidden")
     if "ln2" in lp:                           # attn-free mamba: no MLP
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _mlp(h2, lp, cfg, compute_dtype).to(x.dtype)
+        x = x + _mlp(h2, lp, cfg, compute_dtype, shard).to(x.dtype)
+        x = shard(x, "hidden")
     return x, new_cache, new_state
 
 
 def cross_layer_body(x, lp, cfg: ArchConfig, enc, *, q_pos,
-                     compute_dtype=torch.bfloat16):
+                     compute_dtype=torch.bfloat16, shard: ShardFn = _noshard):
     """Gated cross-attention layer (llama-3.2-vision style)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     attn, _ = _attention(h, lp, cfg, q_pos=q_pos, is_global=True,
-                         kv_override=enc, compute_dtype=compute_dtype)
+                         kv_override=enc, compute_dtype=compute_dtype,
+                         shard=shard)
     x = x + torch.tanh(lp["gate_attn"]).to(x.dtype) * attn.to(x.dtype)
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + torch.tanh(lp["gate_mlp"]).to(x.dtype) * _mlp(
-        h2, lp, cfg, compute_dtype).to(x.dtype)
+    return shard(x + torch.tanh(lp["gate_mlp"]).to(x.dtype) * _mlp(
+        h2, lp, cfg, compute_dtype).to(x.dtype), "hidden")

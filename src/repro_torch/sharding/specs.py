@@ -26,20 +26,26 @@ package's.  The trees are keyed and stacked as the JAX package's
 (``param_shapes``: layer leaves (L, ...)).  :func:`to_placements` turns a
 spec into ``torch.distributed.tensor`` placements on a ``DeviceMesh`` and
 :func:`distribute_params` shards the port's per-layer leaves by the
-trailing part of their stacked spec.
+trailing part of their stacked spec.  :func:`activation_shard_fn` is the
+``shard`` callback the models take: it redistributes a ``DTensor``
+activation to the spec its name has in the JAX package's table, the MoE
+buffers' specs rewritten for the port's (E, B*C, .) layout.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
+from ..kernels.sharded import constrain
 from ..models.config import ArchConfig
+from ..models.perf_flags import get_flags
 from ..models.transformer import param_shapes
 from ..models.tree import leaves, rebuild
 
-__all__ = ["MODEL_AXIS", "PartitionSpec", "batch_axes", "batch_pspecs",
-           "cache_pspecs", "distribute_params", "param_pspecs",
-           "to_placements"]
+__all__ = ["MODEL_AXIS", "PartitionSpec", "activation_shard_fn",
+           "batch_axes", "batch_pspecs", "cache_pspecs", "distribute_params",
+           "param_pspecs", "to_placements"]
 
 MODEL_AXIS = "model"
 
@@ -273,3 +279,43 @@ def distribute_params(params, cfg: ArchConfig, mesh, *,
         out.append(distribute_tensor(leaf.value.detach(), mesh,
                                      to_placements(mesh, spec)))
     return rebuild(params, out)
+
+
+def activation_shard_fn(mesh, cfg: ArchConfig, *, multi_pod: bool):
+    """The ``shard(x, name)`` callback threaded through the model code: a
+    ``DTensor`` ``x`` redistributed on ``mesh`` to the spec of ``name``
+    (unknown names and plain tensors are returned as they are).  The JAX
+    package's table, ``seq_shard`` read from the perf flags when the
+    callback is made, with the MoE buffers laid out as the port lays them
+    out, (E, B*C, d|f) for the JAX package's (B, E, C, d|f): the batch
+    axes on the B*C dim (a row's C entries are contiguous in it), the
+    dispatch buffer expert-replicated across ``model`` as the JAX
+    package's is, the experts' hidden activations expert-sharded."""
+    bp = batch_axes(multi_pod)
+    vocab_ax = _model_if(cfg.vocab)
+    seq_ax = MODEL_AXIS if get_flags().seq_shard else None
+    table = {
+        "hidden": P(bp, seq_ax, None),
+        "logits": P(bp, None, vocab_ax),
+        "moe_buf": P(None, bp, None),
+        "moe_h": P(MODEL_AXIS, bp, None),
+    }
+    placements = to_placements(mesh, table)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+    def shard(x, name):
+        from torch.distributed.tensor import DTensor, Replicate
+        if name not in placements or not isinstance(x, DTensor):
+            return x
+        # a dim that does not divide over its ranks stays whole (JAX pads
+        # it; DTensor would split it unevenly, which its views refuse):
+        # a decode step's one position under seq_shard
+        pl = list(placements[name])
+        for d, entry in enumerate(table[name]):
+            ranks = math.prod(sizes[a] for a in axes_of(entry))
+            if x.shape[d] % ranks:
+                pl = [Replicate() if getattr(p, "dim", None) == d else p
+                      for p in pl]
+        return constrain(x, pl)
+
+    return shard

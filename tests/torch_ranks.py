@@ -208,3 +208,63 @@ def moe_rank(rank, world, shape, x, params, moe_fields):
     p = {k: torch.from_numpy(v) for k, v in params.items()}
     return moe_mlp_shardmap(torch.from_numpy(x), p, MoEConfig(**moe_fields),
                             mesh, ("data",))
+
+
+def dtensor_forward_rank(rank, world, arch, widths, toks, mesh_shape,
+                         seq_shards):
+    """A reduced ``arch``'s float32 forward with its params distributed on
+    a ("data", "model") mesh of ``mesh_shape`` (``axis_size`` the model
+    axis), the tokens batch-sharded and ``activation_shard_fn``'s callback
+    threaded through, once for each ``seq_shard`` of ``seq_shards``: the
+    whole logits, the placements the callback gave the residual stream,
+    and the loss with the tokens as targets and its gradients, whole."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.perf_flags import reset_flags, set_flags
+    from repro_torch.sharding import (PartitionSpec, activation_shard_fn,
+                                      distribute_params, to_placements)
+    from repro_torch.train.steps import _grad_leaves, lm_loss
+
+    mesh = init_device_mesh("cpu", mesh_shape,
+                            mesh_dim_names=("data", "model"))
+    cfg = get_config(arch).reduced(**widths)
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    dparams = distribute_params(params, cfg, mesh, axis_size=mesh_shape[1])
+    out = []
+    for seq_shard in seq_shards:
+        set_flags(seq_shard=seq_shard)
+        try:
+            seen = []
+            shard = activation_shard_fn(mesh, cfg, multi_pod=False)
+
+            def spy(x, name):
+                y = shard(x, name)
+                if name == "hidden":
+                    seen.append([(type(p).__name__, getattr(p, "dim", None))
+                                 for p in y.placements])
+                return y
+            with implicit_replication():
+                tok = distribute_tensor(
+                    torch.from_numpy(toks), mesh,
+                    to_placements(mesh, PartitionSpec("data", None)))
+                logits = forward(dparams, cfg, tok,
+                                 compute_dtype=torch.float32, shard=spy)
+                # the loss (the target logits picked a vocab shard a rank)
+                # and its gradients through the constrained cotangents
+                leafy, inputs = _grad_leaves(dparams)
+                with torch.enable_grad():
+                    loss, _ = lm_loss(leafy, cfg,
+                                      {"inputs": tok, "targets": tok},
+                                      compute_dtype=torch.float32,
+                                      shard=shard)
+                    grads = torch.autograd.grad(loss, inputs)
+            out.append({"logits": logits.full_tensor(), "hidden": seen,
+                        "loss": loss.detach().full_tensor(),
+                        "grads": [g.full_tensor() for g in grads]})
+        finally:
+            reset_flags()
+    return out
