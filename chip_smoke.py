@@ -287,8 +287,20 @@ version:
    ``repro_torch.launch.hlo_cost`` (FLOPs, bytes, 6·N·D, useful ratio),
    its compute, memory and bound terms at the H100's data-sheet peaks
    beside phase 15's measured ms a step and its MFU; one single-pod
-   ``launch.dryrun.lower_cell`` (llama3.2-1b, train_4k), timed;
-18. print every phase's wall, then one JSON line ``{"kernels": [...]}`` with launches, max |diff|,
+   ``launch.dryrun.lower_cell`` (llama3.2-1b, train_4k), timed, and
+   every single-pod cell of falcon-mamba-7b and hymba-1.5b but hymba's
+   long_500k (their conv a shard a rank, ``kernels.sharded.conv_dtensor``),
+   each required ok;
+18. the JAX package's remaining kernel entry points, their counters set
+   to 0 just before one traced call each and read just after:
+   ``hpwl_pallas`` and ``hpwl_batched`` (pnr_bench's 256 harris
+   placements) one zero-step K2 each, ``hpwl_delta_pallas`` one
+   ``swap_delta_kernel``, ``alu_step_pallas`` one ``alu_step_kernel``
+   (256 x 4,096 lanes, the whole op table), counters == trace, each
+   result == its plain version (bit for bit; the transcendentals within
+   2 ulp); each timed beside its plain version and bound, ``hpwl_batched``
+   also the kernel alone and its wrapper's pin-table sort;
+19. print every phase's wall, then one JSON line ``{"kernels": [...]}`` with launches, max |diff|,
    times and bounds of K1-K7 (K1's row: its launches counted in the
    main path's trace, its ``ms`` K2 with zero steps, the kernel alone,
    against the bound of that launch's bytes, its ``timed`` key says so;
@@ -312,7 +324,9 @@ version:
    K6's ``dist_train_launches``, ``dist_gpipe_launches`` and
    ``dist_shard_launches`` its launches in phase 16 (a), (e) and (g),
    ``ce_chunked_launches`` in phase 15 (e)'s chunked step; K7's
-   ``stream_launches`` in phase 11's streamed prefill), then ``{"ok":
+   ``stream_launches`` in phase 11's streamed prefill; a row for each
+   entry point of phase 18, its launches there, ``ms`` with its wrapper,
+   ``hpwl_batched``'s ``kernel_ms`` and ``pin_table_ms``), then ``{"ok":
    true, "device": {...}}`` as the last line.
 
 Any failure exits nonzero; no phase catches an error and carries on
@@ -3558,6 +3572,44 @@ def shard_flags_check(dev, card) -> dict:
 RF_CELL = ("llama3.2-1b", "train_4k")
 
 
+#: phase 17: the Mamba configurations' dry-run cells, single pod, beside
+#: RF_CELL (torch 2.11's redistribution planner failed falcon-mamba-7b's
+#: train_4k at the conv's pad before the conv ran a shard a rank, then at
+#: the dt projection before x_proj's partial sums were reduced); all but
+#: hymba-1.5b's long_500k, which took 197 s of the run's time limit alone
+#: on the card machine (``python -m repro_torch.launch.dryrun --arch
+#: hymba-1.5b --shape long_500k --mesh single`` runs it)
+RF_MAMBA_CELLS = tuple(
+    (arch, shape) for arch in ("falcon-mamba-7b", "hymba-1.5b")
+    for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+    if (arch, shape) != ("hymba-1.5b", "long_500k"))
+
+
+def mamba_cells_check() -> dict:
+    """Every cell of RF_MAMBA_CELLS through ``dryrun.lower_cell`` on the
+    fake 256-rank mesh, each required "ok"; prints each cell's seconds,
+    dominant term, bound and useful ratio.  Returns {"arch/shape":
+    seconds}."""
+    from repro_torch.launch import dryrun
+    out = {}
+    for arch, shape in RF_MAMBA_CELLS:
+        t0 = time.perf_counter()
+        cell = dryrun.lower_cell(arch, shape, multi_pod=False, verbose=False)
+        secs = time.perf_counter() - t0
+        if cell["status"] != "ok":
+            fail(f"the dry-run cell ({arch}, {shape}): {cell}")
+        out[f"{arch}/{shape}"] = secs
+        bound = max(cell["compute_s"], cell["memory_s"],
+                    cell["collective_s"])
+        print(f"dry-run cell ({arch}, {shape}) single pod in {secs:.1f} s: "
+              f"dominant {cell['dominant']}, bound {bound * 1e3:.3f} "
+              f"ms (compute {cell['compute_s'] * 1e3:.3f}, memory "
+              f"{cell['memory_s'] * 1e3:.3f}, collective "
+              f"{cell['collective_s'] * 1e3:.3f}), useful ratio "
+              f"{cell['useful_ratio']:.4f}", flush=True)
+    return out
+
+
 def roofline_phase(card, step_ms: float) -> dict:
     """Phase 17: ``hlo_cost.analyze`` of phase 15's exact train step
     (Llama 3.2 1B at full width, TR_BATCH x TR_SEQ tokens, one rank) on
@@ -3628,9 +3680,219 @@ def roofline_phase(card, step_ms: float) -> dict:
           f"{cell['memory_s'] * 1e3:.3f}, collective "
           f"{cell['collective_s'] * 1e3:.3f}), useful ratio "
           f"{cell['useful_ratio']:.4f}", flush=True)
+    mamba_s = mamba_cells_check()
     return {"roofline_flops": cost.flops, "roofline_bytes": cost.bytes,
             "model_flops": mflops, "useful_ratio": rl.useful_ratio,
-            "bound_ms": rl.bound_s * 1e3, "mfu": mfu, "cell_s": cell_s}
+            "bound_ms": rl.bound_s * 1e3, "mfu": mfu, "cell_s": cell_s,
+            "mamba_cells_s": mamba_s}
+
+
+#: phase 18: ``benchmarks/pnr_bench.py``'s batched-HPWL microbenchmark
+#: shape, 256 placements of the harris app on an 8x8 fabric (slot
+#: permutations, seed 0), and (rows, lanes) of the free-standing ALU step
+EP_PLACEMENTS, EP_ALU_SHAPE = 256, (256, 4096)
+EP_TRANSCENDENTAL = ("exp", "log", "tanh", "sigmoid", "rsqrt", "pow")
+
+
+def entry_points_phase(dev, card) -> list:
+    """Phase 18: the JAX package's remaining kernel entry points on the
+    card, with their launch counters set to 0 just before and read just
+    after one traced call each: ``hpwl_pallas`` (one placement) and
+    ``hpwl_batched`` (pnr_bench's 256) each one zero-step ``anneal_kernel``
+    (K2), ``hpwl_delta_pallas`` one ``swap_delta_kernel`` (K2's row cost)
+    for a swap over the nets it touches, ``alu_step_pallas`` one
+    ``alu_step_kernel`` (K3's ALU dispatch) over EP_ALU_SHAPE lanes and
+    the whole op table; the counters equal to the trace, and no other
+    kernel of the sources launched.  Each result held to its plain
+    version on the card: bit-equal (HPWLs and deltas are integers; the
+    IEEE-exact ALU ops), the transcendentals within 2 ulp.  Then each
+    timed with CUDA events beside its plain version and its bound, and
+    ``hpwl_batched`` also the kernel alone (trace) and its wrapper's pin
+    table.  Returns the kernels line's rows."""
+    import numpy as np
+    import torch
+    from repro_torch.apps import image_graphs
+    from repro_torch.core import baseline_datapath, map_application
+    from repro_torch.core.dse import app_ops
+    from repro_torch.fabric import FabricSpec, extract_netlist, lower
+    from repro_torch.kernels import pnr_cost, sim_step
+
+    phase("18 the JAX package's kernel entry points on K2 and K3")
+    app = image_graphs()["harris"]
+    spec = FabricSpec(rows=8, cols=8)
+    prob = lower(extract_netlist(map_application(
+        baseline_datapath(app_ops(app)), app, "harris"), app, spec), spec)
+    rng = np.random.default_rng(0)
+    e_n = prob.n_entities
+    perms = np.stack([rng.permutation(e_n) for _ in range(EP_PLACEMENTS)])
+    pos = torch.from_numpy(prob.slot_xy[perms]).to(dev)
+    pins = torch.from_numpy(prob.net_pins).to(dev)
+    mask = torch.from_numpy(prob.net_mask).to(dev)
+    n_n, d_n = prob.net_pins.shape
+    # a swap of two entities over the nets either lies on
+    slot_xy = torch.from_numpy(prob.slot_xy).to(dev)
+    slot_of = torch.from_numpy(perms[0].astype(np.int32)).to(dev)
+    ea, eb = (int(v) for v in rng.choice(
+        np.unique(prob.net_pins[prob.net_mask]), 2, replace=False))
+    nets = [i for i in range(n_n) if np.isin(
+        prob.net_pins[i][prob.net_mask[i]], (ea, eb)).any()]
+    touched = torch.tensor(nets + [n_n] * 2, dtype=torch.int32, device=dev)
+    pnc = pnr_cost._rows_plain(pos[:1], pins, mask)[0][0]
+    # the ALU step: normal operands, small integers and specials
+    ops = sim_step.op_table(list(sim_step.ALU_IMPLS))
+    gen = torch.Generator(device=dev).manual_seed(18)
+    rows, lanes = EP_ALU_SHAPE
+    xs = [torch.exp(torch.empty(EP_ALU_SHAPE, device=dev).uniform_(
+        -6.9, 6.9, generator=gen)) * torch.where(torch.rand(
+            EP_ALU_SHAPE, generator=gen, device=dev) < 0.5, -1.0, 1.0)
+        for _ in range(3)]
+    xs[1][:, :lanes // 4] = torch.randint(-20, 21, (rows, lanes // 4),
+                                          generator=gen, device=dev).float()
+    special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                            float("nan"), 1.0, -1.0], device=dev)
+    for x in xs:
+        hit = torch.rand(EP_ALU_SHAPE, generator=gen, device=dev) < 0.02
+        x[hit] = special[torch.randint(0, len(special), (int(hit.sum()),),
+                                       generator=gen, device=dev)]
+    codes = torch.randint(0, len(ops), (lanes,), generator=gen, device=dev,
+                          dtype=torch.int32)
+
+    counters = {"hpwl_pallas": pnr_cost.hpwl_pallas,
+                "hpwl_batched": pnr_cost.hpwl_batched,
+                "hpwl_delta_pallas": pnr_cost.hpwl_delta_pallas,
+                "alu_step_pallas": sim_step.alu_step_pallas}
+    for f in counters.values():
+        f.launches = 0
+    out, kern, _ = device_kernels(lambda: (
+        pnr_cost.hpwl_pallas(pos[0], pins, mask),
+        pnr_cost.hpwl_batched(pos, pins, mask),
+        pnr_cost.hpwl_delta_pallas(slot_xy, slot_of, pins, mask, pnc,
+                                   touched, ea, eb),
+        sim_step.alu_step_pallas(codes, *xs, ops)))
+    launches = {k: f.launches for k, f in counters.items()}
+    ours = {name: launches_of(kern, name) for name in source_kernels()}
+    want_trace = {"anneal_kernel": 2, "swap_delta_kernel": 1,
+                  "alu_step_kernel": 1}
+    if launches != dict.fromkeys(counters, 1) or \
+            {k: v for k, v in ours.items() if v} != want_trace:
+        fail(f"the entry points launched {launches}, the trace holds "
+             f"{ {k: v for k, v in ours.items() if v} }, expected one "
+             f"each and {want_trace}")
+    one, batched, (new, delta), alu = out
+    want_net, want_tot = pnr_cost._rows_plain(pos, pins, mask)
+    got_net, got_tot = pnr_cost._rows_k2(pos, pins, mask)
+    want_new, want_delta = pnr_cost.hpwl_delta_pallas_plain(
+        slot_xy, slot_of, pins, mask, pnc, touched, ea, eb)
+    if not (torch.equal(one, want_tot[0]) and torch.equal(batched, want_tot)
+            and torch.equal(got_net, want_net)
+            and torch.equal(got_tot, want_tot)):
+        fail("hpwl_pallas / hpwl_batched differ from their plain version")
+    if not (torch.equal(new, want_new) and torch.equal(delta, want_delta)):
+        fail("hpwl_delta_pallas differs from its plain version")
+    want_alu = sim_step.alu_step_plain(codes, *xs, ops)
+    tiny = float(torch.finfo(torch.float32).tiny)
+    normal = ~((want_alu.abs() < tiny) & (want_alu != 0))
+    code = torch.broadcast_to(codes, alu.shape)
+    alu_err = 0.0
+    for k, op in enumerate(ops):
+        lanes_k = (code == k) & normal
+        g, w = alu[lanes_k], want_alu[lanes_k]
+        both_nan = torch.isnan(g) & torch.isnan(w)
+        if op in EP_TRANSCENDENTAL:
+            def ordered(x):
+                i = x.view(torch.int32).long()
+                return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+            ulp = torch.where(both_nan, 0, (ordered(g) - ordered(w)).abs())
+            if int(ulp.max()) > 2:
+                fail(f"alu_step_pallas: {op} {int(ulp.max())} ulp from its "
+                     f"plain version")
+        elif not same_bits(g, w):
+            fail(f"alu_step_pallas differs from its plain version on {op}")
+        d = torch.where(both_nan | (g == w), 0.0, (g - w).abs())
+        alu_err = max(alu_err, float(d.max()) if d.numel() else 0.0)
+    print(f"entry points on the card: one launch each, the trace's "
+          f"{want_trace}; hpwl_pallas {float(one)} and hpwl_batched (256 "
+          f"totals, per-net costs too) == plain bit for bit; "
+          f"hpwl_delta_pallas over {len(nets)} nets (+2 padding): delta "
+          f"{float(delta)} == plain, new costs bit-equal; alu_step_pallas "
+          f"over {rows}x{lanes} lanes and {len(ops)} ops == plain (exact "
+          f"ops bit for bit, transcendentals within 2 ulp)", flush=True)
+
+    # times: each call with its wrapper (CUDA events), its plain version
+    # on the card, its bound; hpwl_batched also the kernel alone (trace)
+    # and the wrapper's pin-table sort alone
+    reps = 50
+    _, kern_b, _ = device_kernels(lambda: [
+        pnr_cost.hpwl_batched(pos, pins, mask) for _ in range(20)])
+    k2_times = [t for k, v in kern_b.items() if "anneal_kernel" in k
+                for t in v]
+    if len(k2_times) != 20:
+        fail(f"the profiler traced {len(k2_times)} launches of "
+             f"hpwl_batched's K2 for 20")
+    kernel_ms = sum(k2_times) / 20
+    pin_ms = cuda_ms(lambda: pnr_cost.pin_table(pins[None], mask[None]),
+                     reps)
+    real = int(mask.sum())
+    rows_out = []
+    print(card)
+    cases = (
+        ("hpwl_pallas", "anneal_kernel with zero steps as hpwl_pallas (K1's "
+         "entry point on K2)", "pnr_anneal.cu",
+         "src/repro/kernels/pnr_cost.py:136",
+         lambda: pnr_cost.hpwl_pallas(pos[0], pins, mask),
+         lambda: pnr_cost._rows_plain(pos[:1], pins, mask),
+         nbytes(pos[0], pins, mask) + 4, 4 * real + 3 * n_n, 0.0),
+        ("hpwl_batched", "anneal_kernel with zero steps as hpwl_batched "
+         "(K2, 256 chains)", "pnr_anneal.cu",
+         "src/repro/kernels/pnr_cost.py:102",
+         lambda: pnr_cost.hpwl_batched(pos, pins, mask),
+         lambda: pnr_cost._rows_plain(pos, pins, mask),
+         nbytes(pos, pins, mask) + 4 * EP_PLACEMENTS,
+         EP_PLACEMENTS * (4 * real + 3 * n_n), 0.0),
+        ("hpwl_delta_pallas", "swap_delta_kernel (K2's row cost)",
+         "pnr_anneal.cu", "src/repro/kernels/pnr_cost.py:238",
+         lambda: pnr_cost.hpwl_delta_pallas(slot_xy, slot_of, pins, mask,
+                                            pnc, touched, ea, eb),
+         lambda: pnr_cost.hpwl_delta_pallas_plain(
+             slot_xy, slot_of, pins, mask, pnc, touched, ea, eb),
+         # the touched nets' pin rows, their pins' slots and coordinates,
+         # their costs, the list and the two entities; new costs and delta
+         len(nets) * d_n * 5 + int(mask[nets].sum()) * 12
+         + touched.numel() * 12 + 8 + 4,
+         4 * int(mask[nets].sum()) + 5 * len(nets), 0.0),
+        ("alu_step_pallas", "alu_step_kernel (K3's ALU dispatch)",
+         "sim_step.cu", "src/repro/kernels/sim_step.py:179",
+         lambda: sim_step.alu_step_pallas(codes, *xs, ops),
+         lambda: sim_step.alu_step_plain(codes, *xs, ops),
+         nbytes(codes, *xs) + xs[0].numel() * 4, rows * lanes, alu_err))
+    for key, name, src, repl, fn, plain, b, opn, err in cases:
+        ms = cuda_ms(fn, reps)
+        plain_ms = cuda_ms(plain, 10)
+        t_b, t_o = b / HBM_BYTES_PER_S * 1e3, opn / FP32_OPS_PER_S * 1e3
+        b_ms, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+        row = {"name": name, "route": "cuda", "source": CSRC + src,
+               "replaces": repl, "launches": launches[key],
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+               "entry_point": "repro_torch.kernels." + (
+                   "sim_step." if key.startswith("alu") else "pnr_cost.")
+               + key,
+               "timed": "the entry point with its wrapper (CUDA events)"}
+        if key == "hpwl_batched":
+            row["kernel_ms"], row["pin_table_ms"] = kernel_ms, pin_ms
+            print(f"hpwl_batched at pnr_bench's shape ({EP_PLACEMENTS} "
+                  f"placements of harris on 8x8: E={e_n}, N={n_n}, D={d_n}, "
+                  f"{real} pins): {ms:.4f} ms with its wrapper, the kernel "
+                  f"alone {kernel_ms:.4f} ms (torch.profiler), the wrapper's "
+                  f"pin-table sort alone {pin_ms:.4f} ms; against a bound of "
+                  f"{b_ms:.6f} ms ({by}: {b} bytes at 3.35 TB/s); plain "
+                  f"{plain_ms:.4f} ms", flush=True)
+        else:
+            print(f"{key}: {ms:.4f} ms with its wrapper against a bound of "
+                  f"{b_ms:.6f} ms ({by}), plain {plain_ms:.4f} ms",
+                  flush=True)
+        rows_out.append(row)
+    return rows_out
 
 
 def main() -> int:
@@ -4299,8 +4561,11 @@ def main() -> int:
     # -- 17: phase 15's step counted, its roofline and MFU ---------------
     p17 = roofline_phase(card, p15_k6["train_step_ms"])
 
-    # -- 18: the kernels line ---------------------------------------------
-    phase("18 the kernels line")
+    # -- 18: the JAX package's kernel entry points on K2 and K3 ----------
+    p18 = entry_points_phase(dev, card)
+
+    # -- 19: the kernels line ---------------------------------------------
+    phase("19 the kernels line")
     def bound(b, ops, peak=FP32_OPS_PER_S):
         t_b, t_o = b / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
@@ -4419,6 +4684,8 @@ def main() -> int:
     print(f"K1/K2 timed at signature {'x'.join(map(str, sig))} "
           f"(R={r_n} chains, E={e_n}, N={n_n}, D={d_n}); K2 work {work}; "
           f"K3 work {k3_ops} ALU operations, {k3_bytes} bytes")
+    # the JAX package's kernel entry points on K2 and K3 (phase 18)
+    kernels.extend(p18)
     for row in kernels:
         if row["ms"] < row["bound_ms"]:
             fail(f"{row['name']} reads {row['ms']} ms, below its bound of "

@@ -2,9 +2,14 @@
 
 * :mod:`.pnr_cost` — HPWL scoring and the annealing chain (K2, whose
   prologue scores every chain's start: the reference's K1), CUDA C++ in
-  ``csrc/pnr_anneal.cu``;
+  ``csrc/pnr_anneal.cu``, and the reference's ``hpwl_pallas``,
+  ``hpwl_batched`` and ``hpwl_delta_pallas`` on it;
 * :mod:`.sim_step` — the simulator's ALU step and the cycle stepper (K3),
-  CUDA C++ in ``csrc/sim_step.cu``;
+  CUDA C++ in ``csrc/sim_step.cu``, and the reference's ``alu_step_jnp``
+  and ``alu_step_pallas``;
+* :mod:`.tiling` — bucket padding, and the reference's tile helpers;
+* :mod:`.sharded` — K6, K7 and the Mamba conv on ``DTensor``s, K6 and K7
+  on meta tensors;
 * :mod:`.pe_fused` — the generated fused-PE kernel (K4), Triton code
   generated per pattern;
 * :mod:`.gemm` — the matmul with a fused PE epilogue (K5), CUDA C++ in

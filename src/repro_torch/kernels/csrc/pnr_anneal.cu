@@ -37,6 +37,12 @@
 // problem.  `pnc0_out`, when not null, receives them (for the checks
 // against the plain version).
 //
+// The reference's entry points on this source: `hpwl_pallas` and
+// `hpwl_batched` are one zero-step launch of K2 (its prologue scores the
+// placements; `xy_chain` gives each chain its own slot coordinates), and
+// `hpwl_delta_pallas` is `swap_delta_kernel`: one warp rescoring a given
+// list of nets with `row_cost`.
+//
 // Fixed boxes (the hierarchical placer's cluster-local problems): each net
 // carries [xmin, xmax, ymin, ymax] of its pins outside the sub-problem,
 // folded into the bounding box; a net with no movable pin scores its box
@@ -290,12 +296,15 @@ __device__ __forceinline__ void sweep(
 
 // K2: one chain r a block (blockDim.x = 32).  pin_tab (P, N, W): per net
 // [count, pins..., -1...]; net_fix (P, N, 4) with FIX.  Streams a/t/log_u
-// are per chain (R, S); temps/active per problem (P, S).  With `stage`, the
-// chain's problem's tables are copied to shared memory.
+// are per chain (R, S); temps/active per problem (P, S).  slot_xy is per
+// problem (P, E, 2), or with `xy_chain` per chain (R, E, 2): R placements
+// of one problem scored by a zero-step launch (hpwl_batched).  With
+// `stage`, the chain's problem's tables are copied to shared memory.
 template <bool FIX>
 __global__ void anneal_kernel(
     int S, int N, int W, int E, int K, int stage, int full, int telemetry,
-    const int* __restrict__ prob, const float* __restrict__ slot_xy,
+    int xy_chain, const int* __restrict__ prob,
+    const float* __restrict__ slot_xy,
     const int* __restrict__ pin_tab, const int* __restrict__ ent_nets,
     const float* __restrict__ temps, const uint8_t* __restrict__ active,
     const int* __restrict__ A, const int* __restrict__ T,
@@ -311,7 +320,8 @@ __global__ void anneal_kernel(
   const float4* fix_g =
       FIX ? reinterpret_cast<const float4*>(net_fix + p * N * 4) : nullptr;
   const int* en_g = ent_nets + p * E * K;
-  const float2* xy_g = reinterpret_cast<const float2*>(slot_xy + p * E * 2);
+  const float2* xy_g = reinterpret_cast<const float2*>(
+      slot_xy + (xy_chain ? (long long)r : p) * E * 2);
   // [pin table N*W | boxes N (FIX) | xy E | ent_nets E*K] (if staged), then
   // the chain's [slot_of E | occ E | pnc N]
   const bool fs = FIX && stage;
@@ -390,6 +400,38 @@ __global__ void anneal_kernel(
                   pnc0_r, bs_r, best_out + r, accepts_out + r, curve_r);
 }
 
+// The delta of one swap over a given list of nets (the reference's Pallas
+// `_hpwl_delta_kernel`, `hpwl_delta_pallas`): one warp, a touched net a
+// lane, each rescored by K2's own `row_cost` with entities ab[0] and ab[1]
+// at each other's slot.  touched (T,): net ids, entries outside [0, N)
+// padding (new 0, old 0; the wrapper refuses negative ones); new_out (T,)
+// the rescored costs, delta_out the sum of new - per_net[net] over the
+// list, duplicates counted each time, as the reference counts them.
+__global__ void swap_delta_kernel(
+    int T, int N, int W, const float* __restrict__ slot_xy,
+    const int* __restrict__ slot_of, const int* __restrict__ pin_tab,
+    const float* __restrict__ per_net, const int* __restrict__ touched,
+    const int* __restrict__ ab, float* __restrict__ new_out,
+    float* __restrict__ delta_out) {
+  const int lane = threadIdx.x;
+  const int a = ab[0], b = ab[1];
+  const int sa = slot_of[a], sb = slot_of[b];
+  const float2* xy = reinterpret_cast<const float2*>(slot_xy);
+  float acc = 0.0f;
+  for (int t = lane; t < T; t += 32) {
+    const int n = touched[t];
+    float c = 0.0f;
+    if (n >= 0 && n < N) {
+      c = row_cost<false>(pin_tab + (long long)n * W, nullptr, slot_of, xy,
+                          a, b, sa, sb);
+      acc += c - per_net[n];
+    }
+    new_out[t] = c;
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) *delta_out = acc;
+}
+
 extern "C" {
 
 // K2's shared memory: the staged tables (if `stage`; the boxes too with
@@ -404,7 +446,8 @@ long long pnr_anneal_smem_bytes(int N, int W, int E, int K, int stage,
 }
 
 int pnr_anneal(int R, int S, int N, int W, int E, int K, int stage, int full,
-               int telemetry, const void* prob, const void* slot_xy,
+               int telemetry, int xy_chain, const void* prob,
+               const void* slot_xy,
                const void* pin_tab, const void* ent_nets, const void* temps,
                const void* active, const void* A, const void* T,
                const void* log_u, const void* slot0, const void* net_fix,
@@ -426,13 +469,24 @@ int pnr_anneal(int R, int S, int N, int W, int E, int K, int stage, int full,
   }
   if (R > 0) {
     kernel<<<R, 32, (size_t)smem, (cudaStream_t)stream>>>(
-        S, N, W, E, K, stage, full, telemetry, (const int*)prob,
+        S, N, W, E, K, stage, full, telemetry, xy_chain, (const int*)prob,
         (const float*)slot_xy, (const int*)pin_tab, (const int*)ent_nets,
         (const float*)temps, (const uint8_t*)active, (const int*)A,
         (const int*)T, (const float*)log_u, (const int*)slot0,
         (const float*)net_fix, (int*)chain_g, (float*)pnc0_out,
         (int*)best_slot, (float*)best, (int*)accepts, (float*)curve);
   }
+  return (int)cudaGetLastError();
+}
+
+int pnr_swap_delta(int T, int N, int W, const void* slot_xy,
+                   const void* slot_of, const void* pin_tab,
+                   const void* per_net, const void* touched, const void* ab,
+                   void* new_out, void* delta_out, void* stream) {
+  swap_delta_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
+      T, N, W, (const float*)slot_xy, (const int*)slot_of,
+      (const int*)pin_tab, (const float*)per_net, (const int*)touched,
+      (const int*)ab, (float*)new_out, (float*)delta_out);
   return (int)cudaGetLastError();
 }
 

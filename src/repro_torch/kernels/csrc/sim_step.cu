@@ -51,7 +51,10 @@
 // even, 2**b exact for integer b.  Build with --fmad=false and without fast
 // math so nothing else is contracted or approximated.
 //
-// The C entry point returns cudaGetLastError() after the launch.
+// `alu_step_kernel` is the reference's free-standing Pallas step
+// (`alu_step_pallas`): the same `alu` over caller-given lanes.
+//
+// The C entry points return cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -293,6 +296,29 @@ sim_stepper_kernel(const Args a) {
   }
 }
 
+// One free-standing ALU step of every lane (the reference's Pallas
+// `_build_step_kernel` entry point, `alu_step_pallas`): out[i] =
+// alu(op, a[i], b[i], c[i]) over rows x cols lanes, with op the global id
+// table[k] of the lane's code k = codes[row * code_stride + col] (0 for a
+// row of codes shared by every row), nop for a code outside the table.
+// K3's own dispatch, outside the cycle loop: the stepper's operands come
+// from its machine state, these from the caller.
+__global__ void alu_step_kernel(long long n, int cols, int code_stride,
+                                int n_codes, const int* __restrict__ codes,
+                                const int* __restrict__ table,
+                                const float* __restrict__ a,
+                                const float* __restrict__ b,
+                                const float* __restrict__ c,
+                                float* __restrict__ out) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long row = i / cols;
+    const int k = codes[row * code_stride + (int)(i - row * cols)];
+    const int op = (k >= 0 && k < n_codes) ? table[k] : OP_NOP;
+    out[i] = alu(op, a[i], b[i], c[i]);
+  }
+}
+
 // floats of state per block; kernels/sim_step.py::stepper_state_bytes / 4
 static long long sim_state_floats(int ip, int up, int ep, int sp, int wp,
                                   int lp, int cp, int D) {
@@ -341,6 +367,19 @@ int sim_stepper(int G, int B, int K, int cycles, int D, int ip, int up,
   if ((long long)G * B > 0)
     sim_stepper_kernel<<<(unsigned)(G * B), sim_threads(wp), (size_t)smem,
                          (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int sim_alu_step(long long n, int cols, int code_stride, int n_codes,
+                 const void* codes, const void* table, const void* a,
+                 const void* b, const void* c, void* out, void* stream) {
+  if (n > 0) {
+    const long long blocks = (n + 255) / 256;
+    alu_step_kernel<<<(unsigned)(blocks < 65536 ? blocks : 65536), 256, 0,
+                      (cudaStream_t)stream>>>(
+        n, cols, code_stride, n_codes, (const int*)codes, (const int*)table,
+        (const float*)a, (const float*)b, (const float*)c, (float*)out);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -28,7 +28,18 @@ beside it that the wrapper runs for CPU tensors:
   per-net HPWL of the Pallas ``_hpwl_kernel`` (``hpwl_pallas``), which
   therefore has no launch of its own.
 
-The wrapper counts its launches in ``anneal_chains.launches``.  For a
+The reference's kernel entry points, each with its ``device`` (the card
+by default, ``"cpu"`` for the plain version):
+
+* :func:`hpwl_pallas` / :func:`hpwl_batched` — the total HPWL of one /
+  of C placements of a problem, one zero-step launch of K2 whose
+  prologue scores them (the C placements as its chains, each with its
+  own slot coordinates);
+* :func:`hpwl_delta_pallas` — one swap scored over a list of nets, one
+  launch of ``swap_delta_kernel`` (same source): a warp rescoring each
+  net with K2's row cost.
+
+Each wrapper counts its launches in ``<function>.launches``.  For a
 CUDA tensor it launches its kernel or raises; it never falls back to the
 plain version.
 """
@@ -41,11 +52,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 __all__ = ["hpwl_reference", "net_hpwl_from_xy", "net_hpwl", "hpwl",
            "hpwl_delta", "EMPTY_BOX", "fixed_box", "net_hpwl_fixed_from_xy",
            "net_hpwl_fixed", "hpwl_fixed", "hpwl_delta_fixed",
            "net_hpwl_rows_plain", "anneal_chains", "anneal_chains_plain",
-           "anneal_layout", "pin_table", "CURVE_POINTS"]
+           "anneal_layout", "pin_table", "CURVE_POINTS", "hpwl_pallas",
+           "hpwl_batched", "hpwl_delta_pallas", "hpwl_delta_pallas_plain"]
 
 _BIG = 1e9
 
@@ -226,8 +240,10 @@ def _lib():
     lib = load(_SOURCE)
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pnr_anneal.argtypes = [i] * 9 + [p] * 18
+        lib.pnr_anneal.argtypes = [i] * 10 + [p] * 18
         lib.pnr_anneal.restype = i
+        lib.pnr_swap_delta.argtypes = [i] * 3 + [p] * 9
+        lib.pnr_swap_delta.restype = i
         lib.pnr_anneal_smem_bytes.argtypes = [i] * 7
         lib.pnr_anneal_smem_bytes.restype = ctypes.c_longlong
         lib.pnr_error_string.argtypes = [i]
@@ -301,6 +317,7 @@ AnnealOut = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
 def anneal_chains_plain(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
                         active, a, t, log_u, slot0, net_fix=None, *,
                         full: bool = False, telemetry: bool = False,
+                        xy_chain: bool = False,
                         pnc0_out: Optional[torch.Tensor] = None,
                         work: Optional[dict] = None) -> AnnealOut:
     """Plain version of K2: every chain's sweep, vectorised over chains
@@ -314,6 +331,13 @@ def anneal_chains_plain(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
     """
     dev = slot0.device
     r_n, e_n = slot0.shape
+    if xy_chain:
+        # chain r's own slot coordinates: each chain its own problem
+        p = prob.long()
+        net_pins, net_mask, ent_nets, temps, active = (
+            x[p] for x in (net_pins, net_mask, ent_nets, temps, active))
+        net_fix = None if net_fix is None else net_fix[p]
+        prob = torch.arange(r_n, dtype=torch.int32, device=dev)
     n_n = net_pins.shape[1]
     s_n = a.shape[1]
     k_n = ent_nets.shape[2]
@@ -458,7 +482,7 @@ def anneal_layout(n: int, d: int, e: int, k: int, fix: bool = False
 
 
 def _anneal_checks(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
-                   active, a, t, log_u, slot0, net_fix, pnc0_out):
+                   active, a, t, log_u, slot0, net_fix, pnc0_out, xy_chain):
     """The kernel's argument checks; returns (R, S, N, D, E, K, P)."""
     dev = slot0.device
     r, e = slot0.shape
@@ -466,7 +490,8 @@ def _anneal_checks(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
     k = ent_nets.shape[2]
     s = a.shape[1]
     checks = [("prob", prob, torch.int32, (r,)),
-              ("slot_xy", slot_xy, torch.float32, (p, e, 2)),
+              ("slot_xy", slot_xy, torch.float32, (r if xy_chain else p, e,
+                                                   2)),
               ("net_pins", net_pins, torch.int32, (p, n, d)),
               ("net_mask", net_mask, torch.bool, (p, n, d)),
               ("ent_nets", ent_nets, torch.int32, (p, e, k)),
@@ -494,6 +519,7 @@ def _anneal_outputs(r, e, dev):
 def anneal_chains(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
                   active, a, t, log_u, slot0, net_fix=None, *,
                   full: bool = False, telemetry: bool = False,
+                  xy_chain: bool = False,
                   pnc0_out: Optional[torch.Tensor] = None) -> AnnealOut:
     """Anneal R chains, each over its own problem, for S steps.
 
@@ -503,7 +529,9 @@ def anneal_chains(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
     hierarchical placer's sub-problems, net_fix (P, N, 4) float32 fixed
     boxes (None on the flat path).  Per chain: prob (R,) int32, move
     streams a / t (R, S) int32 and log_u (R, S) float32, and the starting
-    slots slot0 (R, E) int32.  ``pnc0_out`` (R, N) float32, when given,
+    slots slot0 (R, E) int32.  With ``xy_chain`` slot_xy is per chain,
+    (R, E, 2): R placements of one problem (the zero-step launch of
+    :func:`hpwl_batched`).  ``pnc0_out`` (R, N) float32, when given,
     receives each chain's starting per-net costs.
 
     Each step swaps entity ``a`` with the occupant ``b`` of slot ``t``,
@@ -532,10 +560,12 @@ def anneal_chains(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
         return anneal_chains_plain(prob, slot_xy, net_pins, net_mask,
                                    ent_nets, temps, active, a, t, log_u,
                                    slot0, net_fix, full=full,
-                                   telemetry=telemetry, pnc0_out=pnc0_out)
+                                   telemetry=telemetry, xy_chain=xy_chain,
+                                   pnc0_out=pnc0_out)
     r, s, n, d, e, k, p = _anneal_checks(prob, slot_xy, net_pins, net_mask,
                                          ent_nets, temps, active, a, t,
-                                         log_u, slot0, net_fix, pnc0_out)
+                                         log_u, slot0, net_fix, pnc0_out,
+                                         xy_chain)
     fix = net_fix is not None
     full = full or 2 * k > _MAX_TOUCHED
     w, stage, chain, smem = anneal_layout(n, d, e, k, fix)
@@ -549,7 +579,9 @@ def anneal_chains(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
                                              dtype=torch.int32, device=dev)
     best_slot, best, accepts, curve = _anneal_outputs(r, e, dev)
     rc = lib.pnr_anneal(r, s, n, w, e, k, int(stage), int(full),
-                        int(telemetry), _ptr(prob), _ptr(slot_xy), _ptr(tab),
+                        int(telemetry), int(xy_chain), _ptr(prob),
+                        _ptr(slot_xy),
+                        _ptr(tab),
                         _ptr(ent_nets), _ptr(temps), _ptr(active), _ptr(a),
                         _ptr(t), _ptr(log_u), _ptr(slot0), _ptr(net_fix),
                         _ptr(scratch), _ptr(pnc0_out), _ptr(best_slot),
@@ -561,3 +593,159 @@ def anneal_chains(prob, slot_xy, net_pins, net_mask, ent_nets, temps,
 
 
 anneal_chains.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's kernel entry points, on K2
+# ---------------------------------------------------------------------------
+def _rows_plain(pos: torch.Tensor, net_pins: torch.Tensor,
+                net_mask: torch.Tensor):
+    """Per-net costs (R, N) and totals (R,) of R placements ``pos`` (R, E,
+    2) of one problem: :func:`net_hpwl` a placement."""
+    per_net = net_hpwl_from_xy(pos[:, net_pins.long()], net_mask)
+    return per_net, per_net.sum(dim=-1)
+
+
+def _rows_k2(pos: torch.Tensor, net_pins: torch.Tensor,
+             net_mask: torch.Tensor):
+    """:func:`_rows_plain` as one zero-step launch of K2 (
+    :func:`anneal_chains` with ``xy_chain``) on CUDA tensors: R chains of
+    one problem, chain r's slot coordinates ``pos[r]``, each entity at its
+    own slot; the prologue scores them (K1's function) into ``pnc0_out``
+    and the best cost, the start, is their sum."""
+    dev = pos.device
+    r, e = pos.shape[:2]
+    n = net_pins.shape[0]
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    steps = torch.empty((r, 0), **i32)
+    pnc0 = torch.empty((r, n), **f32)
+    best = anneal_chains(
+        torch.zeros((r,), **i32), pos, net_pins[None], net_mask[None],
+        torch.full((1, e, 1), n, **i32), torch.empty((1, 0), **f32),
+        torch.empty((1, 0), dtype=torch.bool, device=dev), steps, steps,
+        torch.empty((r, 0), **f32),
+        torch.arange(e, **i32).expand(r, e).contiguous(), xy_chain=True,
+        pnc0_out=pnc0)[1]
+    return pnc0, best
+
+
+def _operands(device, *xs):
+    dev = resolve_device(device)
+    return dev, [torch.as_tensor(x, device=dev) for x in xs]
+
+
+def _totals(counted, pos, net_pins, net_mask, device) -> torch.Tensor:
+    """Totals (C,) of C placements ``pos`` (C, E, 2) of one problem: one
+    zero-step K2 launch on the card (counted on ``counted``), the plain
+    version on the CPU."""
+    dev, (pos, net_pins, net_mask) = _operands(device, pos, net_pins,
+                                                net_mask)
+    pos = pos.to(torch.float32)
+    if dev.type != "cuda":
+        return _rows_plain(pos, net_pins, net_mask)[1]
+    totals = _rows_k2(pos.contiguous(),
+                      net_pins.to(torch.int32).contiguous(),
+                      net_mask.to(torch.bool).contiguous())[1]
+    counted.launches += 1
+    return totals
+
+
+def hpwl_pallas(pos, net_pins, net_mask, *, interpret: bool = True,
+                device="cuda") -> torch.Tensor:
+    """Total HPWL of one placement (a 0-dim float32 tensor): the
+    reference's Pallas ``_hpwl_kernel`` entry point.  pos (E, 2); net_pins
+    / net_mask (N, D) (tensors or arrays, moved to ``device``).
+
+    On the card one zero-step launch of K2 scores the placement in its
+    prologue (K1's function; counted in ``hpwl_pallas.launches``); on
+    ``device="cpu"`` the plain version.  ``interpret`` is the reference's
+    keyword, accepted and ignored: it changes no result."""
+    return _totals(hpwl_pallas, torch.as_tensor(pos)[None], net_pins,
+                   net_mask, device)[0]
+
+
+hpwl_pallas.launches = 0
+
+
+def hpwl_batched(pos, net_pins, net_mask, *, device="cuda") -> torch.Tensor:
+    """Total HPWL of each of C placements of one problem (C,) float32: the
+    reference's ``hpwl_batched``, vmapped over a leading chain axis.  pos
+    (C, E, 2); net_pins / net_mask (N, D).
+
+    On the card one zero-step launch of K2 with the C placements as its
+    chains, each with its own slot coordinates (counted in
+    ``hpwl_batched.launches``); on ``device="cpu"`` the plain version."""
+    return _totals(hpwl_batched, pos, net_pins, net_mask, device)
+
+
+hpwl_batched.launches = 0
+
+
+def hpwl_delta_pallas_plain(slot_xy, slot_of, net_pins, net_mask,
+                            per_net_cost, touched, ent_a, ent_b):
+    """Plain version of :func:`hpwl_delta_pallas`: :func:`hpwl_delta`
+    under ``slot_of`` with the two entities' slots exchanged."""
+    a, b = torch.as_tensor(ent_a).long(), torch.as_tensor(ent_b).long()
+    cand = slot_of.clone()
+    cand[a], cand[b] = slot_of[b], slot_of[a]
+    return hpwl_delta(slot_xy, cand, net_pins, net_mask, per_net_cost,
+                      touched)
+
+
+def hpwl_delta_pallas(slot_xy, slot_of, net_pins, net_mask, per_net_cost,
+                      touched, ent_a, ent_b, *, interpret: bool = True,
+                      device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The swap of entities ``ent_a`` and ``ent_b`` (each to the other's
+    slot) scored on the ``touched`` nets, as the reference's Pallas
+    ``_hpwl_delta_kernel`` entry point: ``(new_vals (T,), delta)`` as
+    :func:`hpwl_delta` returns them for the swapped permutation.
+    slot_xy (E, 2) float32; slot_of (E,) entity -> slot; per_net_cost
+    (N,); touched (T,) net ids, entries N for padding (a negative id is
+    refused on either device).
+
+    On the card one launch of ``swap_delta_kernel`` (``pnr_anneal.cu``): a
+    warp rescoring each touched net with K2's ``row_cost`` and summing
+    the delta (counted in ``hpwl_delta_pallas.launches``); on
+    ``device="cpu"`` the plain version.  ``interpret`` is accepted and
+    ignored."""
+    dev, (slot_xy, slot_of, net_pins, net_mask, per_net_cost, touched) = \
+        _operands(device, slot_xy, slot_of, net_pins, net_mask,
+                  per_net_cost, touched)
+    ab = torch.stack([torch.as_tensor(x, device=dev).reshape(())
+                      for x in (ent_a, ent_b)]).to(torch.int32)
+    slot_xy, per_net_cost = (x.to(torch.float32)
+                             for x in (slot_xy, per_net_cost))
+    if touched.numel() and int(touched.min()) < 0:
+        raise ValueError("touched: net ids must be >= 0 (N for padding), "
+                         f"got {int(touched.min())}")
+    if dev.type != "cuda":
+        return hpwl_delta_pallas_plain(slot_xy, slot_of, net_pins, net_mask,
+                                       per_net_cost, touched, ab[0], ab[1])
+    slot_of, net_pins, touched = (x.to(torch.int32).contiguous()
+                                  for x in (slot_of, net_pins, touched))
+    slot_xy, per_net_cost = slot_xy.contiguous(), per_net_cost.contiguous()
+    net_mask = net_mask.to(torch.bool).contiguous()
+    dev = slot_xy.device                 # with its index, as _check wants
+    n, d = net_pins.shape
+    t = touched.numel()
+    for name, x, dt, shape in (
+            ("slot_xy", slot_xy, torch.float32, (slot_xy.shape[0], 2)),
+            ("net_mask", net_mask, torch.bool, (n, d)),
+            ("per_net_cost", per_net_cost, torch.float32, (n,)),
+            ("slot_of", slot_of, torch.int32, (slot_of.numel(),)),
+            ("touched", touched, torch.int32, (t,))):
+        _check(name, x, dt, shape, dev)
+    tab = pin_table(net_pins[None], net_mask[None])
+    new = torch.empty((t,), dtype=torch.float32, device=dev)
+    delta = torch.empty((), dtype=torch.float32, device=dev)
+    lib = _lib()
+    rc = lib.pnr_swap_delta(t, n, tab.shape[2], _ptr(slot_xy), _ptr(slot_of),
+                            _ptr(tab), _ptr(per_net_cost), _ptr(touched),
+                            _ptr(ab), _ptr(new), _ptr(delta), _stream(dev))
+    _check_rc(lib, rc, "swap_delta_kernel")
+    hpwl_delta_pallas.launches += 1
+    return new, delta
+
+
+hpwl_delta_pallas.launches = 0

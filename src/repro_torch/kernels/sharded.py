@@ -1,9 +1,10 @@
 """The flash-attention (K6) and selective-scan (K7) wrappers on
 ``DTensor``s and on meta tensors.
 
-On ``DTensor`` operands the kernels run once a rank on the local shards,
-through ``torch.distributed.tensor.experimental.local_map``: the operands
-are first redistributed to the one layout the kernel can compute in
+On ``DTensor`` operands the kernels (and the Mamba mixer's causal conv,
+:func:`conv_dtensor`) run once a rank on the local shards, through
+``torch.distributed.tensor.experimental.local_map``: the operands are
+first redistributed to the one layout the kernel can compute in
 pieces, every dim but the batch and the heads (K6) or the batch and the
 channels (K7) replicated, so a sharded sequence is gathered (that
 all-gather is what a dispatch-mode counter sees), and the local call goes
@@ -36,8 +37,9 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["as_dtensor", "attention_cost", "attention_dtensor",
-           "batch_only", "blockwise_dtensor", "constrain", "divisible",
-           "is_dtensor", "replicated", "scan_cost", "scan_dtensor"]
+           "batch_only", "blockwise_dtensor", "constrain", "conv_dtensor",
+           "divisible", "is_dtensor", "replicated", "scan_cost",
+           "scan_dtensor"]
 
 
 def is_dtensor(*tensors) -> bool:
@@ -195,6 +197,42 @@ def scan_dtensor(fn, a, bx, c, h0, return_state: bool):
     return local_map(fn, out_placements=out, in_placements=(ap, ap, cp, hp),
                      in_grad_placements=(ap, ap, cg, hp),
                      device_mesh=mesh)(a, bx, c, h0.redistribute(mesh, hp))
+
+
+def conv_dtensor(fn, xi, conv_w, prev):
+    """``fn(xi_l, conv_w_l, prev_l)`` on every rank, for the Mamba
+    mixer's depthwise causal conv: xi (B, S, di) and prev (B, K-1, di) or
+    None keep the shards of their batch and channel dims and take
+    conv_w's channel shards on the mesh dims where they have none (a
+    local slice where they are replicated), conv_w (K, di) takes their
+    channel shards, everything else is gathered, so the padding and the
+    taps see whole sequences of local tensors (torch 2.11's
+    redistribution planner fails on ``F.pad`` of a ``DTensor``).  ``fn``
+    returns the tap sum (B, S, di) and the window it leaves (B, K-1, di),
+    placed as xi; conv_w's gradient is a partial sum over the batch
+    shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(t for t in (xi, conv_w, prev) if is_dtensor(t)).device_mesh
+    xi, conv_w = as_dtensor(xi, mesh), as_dtensor(conv_w, mesh)
+    xp = _kept(xi.placements, (0, 2))
+    xw = tuple(Shard(2) if p == Replicate() and q == Shard(1) else p
+               for p, q in zip(xp, conv_w.placements))
+    if xi.shape[2] % _ranks(mesh, xw, 2) == 0:
+        xp = xw
+    wp = tuple(Shard(1) if p == Shard(2) else Replicate() for p in xp)
+    # conv_w's gradient: each batch shard's part, summed over them
+    wg = tuple(Partial() if p == Shard(0) else q for p, q in zip(xp, wp))
+    xi, conv_w = xi.redistribute(mesh, xp), conv_w.redistribute(mesh, wp)
+    out = (xp, xp)
+    if prev is None:
+        return local_map(lambda x_, w_: fn(x_, w_, None), out_placements=out,
+                         in_placements=(xp, wp), in_grad_placements=(xp, wg),
+                         device_mesh=mesh)(xi, conv_w)
+    prev = as_dtensor(prev, mesh).redistribute(mesh, xp)
+    return local_map(fn, out_placements=out, in_placements=(xp, wp, xp),
+                     in_grad_placements=(xp, wg, xp),
+                     device_mesh=mesh)(xi, conv_w, prev)
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,9 @@ Plain PyTorch functions:
 * :func:`alu_step_plain` — compute-all-select over a static op table (the
   reference's ``alu_step_jnp`` and its Pallas ``_build_step_kernel``);
 * :func:`alu_step_masked` — the same with an activity mask (inactive
-  lanes retire 0.0).
+  lanes retire 0.0);
+* :func:`alu_step_jnp` — the reference's ``lax.switch`` step (codes
+  clamped to the table), on either device.
 
 Kernel K3 (CUDA C++ for sm_90a, ``csrc/sim_step.cu``), with its plain
 version beside it:
@@ -31,23 +33,30 @@ version beside it:
 * :func:`simulate_batch_plain` — the reference's step function in
   PyTorch, one Python iteration per cycle, on any device.
 
-The wrapper counts its launches in ``simulate_batch_stepper.launches``.
-For a CUDA tensor it launches the kernel or raises; it never falls back
-to the plain version.
+* :func:`alu_step_pallas` — the reference's Pallas step entry point: one
+  free-standing ALU step of every lane, one launch of ``alu_step_kernel``
+  (same source), K3's ALU dispatch outside its cycle loop.
+
+Each wrapper counts its launches in ``<function>.launches``.  For a CUDA
+tensor it launches its kernel or raises; it never falls back to the
+plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .pnr_cost import _check, _ptr, _stream
 
 __all__ = ["ALU_IMPLS", "EVENT_KINDS", "OP_IDS", "TABLES", "op_table",
-           "alu_step_reference", "alu_step_plain", "alu_step_masked",
+           "alu_step_reference", "alu_step_plain", "alu_step_jnp",
+           "alu_step_pallas", "alu_step_masked",
            "event_lists", "launch_stepper", "micro_ops", "prepare_stepper",
            "simulate_batch_plain", "simulate_batch_stepper",
            "stepper_state_bytes"]
@@ -192,6 +201,78 @@ def alu_step_plain(codes: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def alu_step_jnp(codes, a, b, c, ops: Tuple[str, ...], *,
+                 device="cuda") -> torch.Tensor:
+    """The reference's ``alu_step_jnp``: every lane's op by ``lax.switch``
+    on its code, which clamps a code outside the table to its nearest
+    end (a negative one to nop, one past the end to the last op).  codes
+    (N,), operands (N,) or (B, N) (tensors or arrays, moved to
+    ``device``).  Plain PyTorch on either device, as the reference's is
+    jnp: :func:`alu_step_plain` on the clamped codes."""
+    dev = resolve_device(device)
+    codes, a, b, c = (torch.as_tensor(x, device=dev)
+                      for x in (codes, a, b, c))
+    return alu_step_plain(torch.clamp(codes, 0, len(ops) - 1), a, b, c, ops)
+
+
+def alu_step_pallas(codes, a, b, c, ops: Tuple[str, ...], *,
+                    interpret: bool = True, device="cuda") -> torch.Tensor:
+    """The reference's Pallas ``_build_step_kernel`` entry point: one ALU
+    step of every lane, compute-all-select, a code outside the table
+    retiring 0.0.  codes (N,) or broadcast to the operands (N,) or (..., N)
+    (tensors or arrays, moved to ``device``); the result float32 of the
+    operands' shape.
+
+    On the card one launch of ``alu_step_kernel`` (``csrc/sim_step.cu``:
+    K3's ALU dispatch ``alu`` over the lanes; counted in
+    ``alu_step_pallas.launches``); on ``device="cpu"``
+    :func:`alu_step_plain`.  Both follow XLA's CPU semantics, ``mac`` one
+    FMA as the reference's simulator computes it (the reference's Pallas
+    step in interpret mode rounds its product first).  ``interpret`` is
+    accepted and ignored."""
+    dev = resolve_device(device)
+    a, b, c = (torch.as_tensor(x, device=dev).to(torch.float32)
+               for x in (a, b, c))
+    codes = torch.as_tensor(codes, device=dev).to(torch.int32)
+    if dev.type != "cuda":
+        return alu_step_plain(codes, a, b, c, ops)
+    shape = a.shape
+    cols = shape[-1] if a.dim() else 1
+    a2, b2, c2 = (x.reshape(-1, cols).contiguous() for x in (a, b, c))
+    if b2.shape != a2.shape or c2.shape != a2.shape:
+        raise ValueError(f"a, b and c must share one shape, got "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}, "
+                         f"{tuple(c.shape)}")
+    if codes.dim() <= 1:
+        codes2, stride = torch.broadcast_to(codes, (cols,)).contiguous(), 0
+    else:
+        codes2 = torch.broadcast_to(codes, shape).reshape(-1, cols)
+        codes2, stride = codes2.contiguous(), cols
+    table = _op_ids_on(tuple(ops), a2.device)
+    out = torch.empty_like(a2)
+    lib = _lib()
+    rc = lib.sim_alu_step(a2.numel(), cols, stride, len(ops), _ptr(codes2),
+                          _ptr(table), _ptr(a2), _ptr(b2), _ptr(c2),
+                          _ptr(out), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"alu_step_kernel failed to launch: CUDA error "
+                           f"{rc} ({lib.sim_error_string(rc).decode()})")
+    alu_step_pallas.launches += 1
+    return out.reshape(shape)
+
+
+alu_step_pallas.launches = 0
+
+
+@functools.lru_cache(maxsize=64)
+def _op_ids_on(ops: Tuple[str, ...], dev: torch.device) -> torch.Tensor:
+    """The global op id of each entry of ``ops`` (int32, on ``dev``), made
+    once for each table and device: copying it to the card on every call
+    would set :func:`alu_step_pallas`'s time.  Read only."""
+    return torch.tensor([OP_IDS[name] for name in ops], dtype=torch.int32,
+                        device=dev)
+
+
 def alu_step_masked(codes: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                     c: torch.Tensor, ops: Tuple[str, ...],
                     active: torch.Tensor) -> torch.Tensor:
@@ -323,6 +404,8 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.sim_stepper.argtypes = [i] * 17 + [p] * 16
         lib.sim_stepper.restype = i
+        lib.sim_alu_step.argtypes = [ctypes.c_longlong] + [i] * 3 + [p] * 7
+        lib.sim_alu_step.restype = i
         lib.sim_error_string.argtypes = [i]
         lib.sim_error_string.restype = ctypes.c_char_p
         lib._typed = True

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.mamba_scan import mamba_scan
+from ..kernels.sharded import batch_only, constrain, conv_dtensor, is_dtensor
 from .config import SSMConfig
 from .layers import _silu, softplus
 from .perf_flags import get_flags
@@ -105,6 +106,23 @@ def _scan_streamed(dt, bmat, cmat, xi, a, h0, *, chunk: int,
     return torch.cat(ys, dim=1), h
 
 
+def _causal_conv(xi: torch.Tensor, conv_w: torch.Tensor,
+                 prev: Optional[torch.Tensor]):
+    """The depthwise causal conv over time, a sum over taps in the
+    operands' dtype: xi (B, S, di) after the window ``prev`` (B, K-1, di),
+    or after K-1 zero rows when it is None; conv_w (K, di).  Returns the
+    sum (B, S, di) and the window it leaves, the last K-1 rows (B, K-1,
+    di)."""
+    kw, s = conv_w.shape[0], xi.shape[1]
+    if prev is not None:
+        xi_pad = torch.cat([prev, xi], dim=1)                # promotes
+    else:
+        xi_pad = F.pad(xi, (0, 0, kw - 1, 0))
+    conv = sum(xi_pad[:, i:i + s] * conv_w[i][None, None]
+               for i in range(kw))
+    return conv, xi_pad[:, xi_pad.shape[1] - (kw - 1):]
+
+
 def mamba_mixer(x: torch.Tensor, params: Dict[str, torch.Tensor],
                 ssm: SSMConfig, *,
                 state: Optional[Dict[str, torch.Tensor]] = None,
@@ -126,19 +144,22 @@ def mamba_mixer(x: torch.Tensor, params: Dict[str, torch.Tensor],
     xi, z = _matmul(x, params["in_proj"]).chunk(2, dim=-1)   # (B,S,di) each
 
     # depthwise causal conv over time ------------------------------------
-    if state is not None:
-        prev = state["conv"]                                 # (B, K-1, di)
-        xi_pad = torch.cat([prev, xi], dim=1)                # promotes
-        new_conv = xi_pad[:, -(kw - 1):] if kw > 1 else prev
+    prev = state["conv"] if state is not None else None      # (B, K-1, di)
+    if is_dtensor(xi, params["conv_w"], prev):
+        conv, window = conv_dtensor(_causal_conv, xi, params["conv_w"], prev)
     else:
-        xi_pad = F.pad(xi, (0, 0, kw - 1, 0))
-        new_conv = xi_pad[:, -(kw - 1):] if kw > 1 else None
-    conv = sum(xi_pad[:, i:i + s] * params["conv_w"][i][None, None]
-               for i in range(kw))
+        conv, window = _causal_conv(xi, params["conv_w"], prev)
+    new_conv = window if kw > 1 else prev
     xi = _silu(conv + params["conv_b"][None, None])
 
     # input-dependent SSM parameters ------------------------------------------
     proj = _matmul(xi, params["x_proj"])
+    if is_dtensor(proj):
+        # x_proj's rows are sharded with the channels, so the product is a
+        # partial sum: reduce it here, batch shards kept, so no planner
+        # has to place dt, B and C from partial sums (torch 2.11's asks
+        # for a shard-to-partial redistribution it does not support)
+        proj = constrain(proj, batch_only(proj.placements))
     dt_rank = ssm.dt_rank_of(d)
     dt, bmat, cmat = proj.split([dt_rank, n, n], dim=-1)
     dt = softplus(_matmul(dt, params["dt_proj"])

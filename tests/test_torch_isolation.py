@@ -42,6 +42,8 @@ def test_import_leaves_jax_and_repro_out():
             "import repro_torch.sharding.compression\n"
             "import repro_torch.sharding.pipeline\n"
             "import repro_torch.launch.mesh\n"
+            "import repro_torch.kernels.tiling, repro_torch.kernels.sharded\n"
+            "import repro_torch.kernels.pnr_cost\n"
             "repro_torch.configs.get_config('llama3.2-1b')\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
@@ -177,6 +179,39 @@ def test_fused_pe_entry_points_need_a_card_by_default(monkeypatch):
     assert attention(q, q, q, device="cpu").tolist() == q.tolist()
     assert selective_scan(a, a, c, device="cpu").tolist() == \
         [[[1.0] * 3, [1.5] * 3]]
+
+
+def test_kernel_entry_points_need_a_card_by_default(monkeypatch):
+    """The JAX package's kernel entry points in the port raise without a
+    card unless asked for the CPU, and count no launch there."""
+    import numpy as np
+    from repro_torch.kernels import pnr_cost, sim_step
+
+    _no_card(monkeypatch)
+    pos = np.float32([[0, 0], [3, 1], [1, 4]])
+    pins, mask = np.int32([[0, 1, 2]]), np.ones((1, 3), bool)
+    x = np.float32([1.5, -2.0])
+    ops = sim_step.op_table(["add"])
+    calls = (lambda **kw: pnr_cost.hpwl_pallas(pos, pins, mask, **kw),
+             lambda **kw: pnr_cost.hpwl_batched(pos[None], pins, mask, **kw),
+             lambda **kw: pnr_cost.hpwl_delta_pallas(
+                 pos, np.int32([0, 1, 2]), pins, mask, np.float32([7.0]),
+                 np.int32([0, 1]), 0, 2, **kw),
+             lambda **kw: sim_step.alu_step_jnp(np.int32([1, 1]), x, x, x,
+                                                ops, **kw),
+             lambda **kw: sim_step.alu_step_pallas(np.int32([1, 1]), x, x, x,
+                                                   ops, **kw))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    counters = (pnr_cost.hpwl_pallas, pnr_cost.hpwl_batched,
+                pnr_cost.hpwl_delta_pallas, sim_step.alu_step_pallas)
+    before = [f.launches for f in counters]
+    out = [call(device="cpu") for call in calls]
+    assert [f.launches for f in counters] == before
+    assert float(out[0]) == 7.0 and out[1].tolist() == [7.0]
+    assert out[2][0].tolist() == [7.0, 0.0] and float(out[2][1]) == 0.0
+    assert out[3].tolist() == out[4].tolist() == [3.0, -4.0]
 
 
 def test_place_and_route_needs_a_card_by_default(monkeypatch):

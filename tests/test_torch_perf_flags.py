@@ -445,10 +445,14 @@ def test_chip_smoke_shard_flags_check_on_the_cpu(monkeypatch):
 
 def test_chip_smoke_roofline_phase_on_the_cpu(monkeypatch):
     """``chip_smoke.roofline_phase`` (phase 17) on the CPU: phase 15's
-    step counted on meta tensors (reduced here, 8 x 64 tokens) and the
-    dry-run cell; the MFU from a made-up step time."""
+    step counted on meta tensors (reduced here, 8 x 64 tokens), the
+    dry-run cell and a Mamba cell through ``mamba_cells_check`` (its
+    conv a shard a rank); the MFU from a made-up step time."""
     cs = _smoke(monkeypatch)
     monkeypatch.setattr(cs, "RF_CELL", ("llama3.2-1b", "decode_32k"))
+    monkeypatch.setattr(cs, "RF_MAMBA_CELLS",
+                        (("falcon-mamba-7b", "decode_32k"),))
     out = cs.roofline_phase("cpu", 100.0)
+    assert list(out["mamba_cells_s"]) == ["falcon-mamba-7b/decode_32k"]
     assert out["roofline_flops"] > out["model_flops"] > 0
     assert out["mfu"] == out["model_flops"] / (0.1 * 989e12)

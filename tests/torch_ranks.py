@@ -268,3 +268,66 @@ def dtensor_forward_rank(rank, world, arch, widths, toks, mesh_shape,
         finally:
             reset_flags()
     return out
+
+
+class _PadSpy:
+    """``torch.nn.functional`` with ``pad`` recording the type and the
+    shape of the tensor it pads."""
+
+    def __init__(self, real):
+        self.real, self.padded = real, []
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+    def pad(self, x, *args, **kw):
+        self.padded.append((type(x).__name__, tuple(x.shape)))
+        return self.real.pad(x, *args, **kw)
+
+
+def mamba_conv_rank(rank, world, x, params, state, ssm_fields, x_spec):
+    """``mamba_mixer``'s prefill on a (2, 2) ("data", "model") mesh: x
+    (B, S, d) placed by ``x_spec`` (a tuple of mesh axis names or None a
+    dim), the params placed by ``sharding.specs``' rules (conv_w's
+    channels over ``model``), once from no state and once from ``state``
+    (its batch over ``data``, its channels over ``model``); the outputs,
+    new states and the gradients of a weighted sum of their means (x, every
+    param, the state), whole, and the type and the shape of every tensor
+    ``F.pad`` padded."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models import ssm
+    from repro_torch.models.config import SSMConfig
+    from repro_torch.sharding import PartitionSpec as P, to_placements
+    from repro_torch.sharding.specs import _rule
+
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+
+    def place(a, spec):
+        return distribute_tensor(torch.from_numpy(a), mesh,
+                                 to_placements(mesh, spec)).requires_grad_()
+    px = place(x, P(*x_spec))
+    pp = {k: place(v, P(*_rule(f"ssm_{k}", v.shape, None, 2)))
+          for k, v in params.items()}
+    ps = {"conv": place(state["conv"], P("data", None, "model")),
+          "h": place(state["h"], P("data", "model", None))}
+    spy = _PadSpy(ssm.F)
+    ssm.F = spy
+    try:
+        out = {}
+        with torch.enable_grad():
+            loss = 0.0
+            for name, st in (("fresh", None), ("state", ps)):
+                y, new = ssm.mamba_mixer(px, pp, SSMConfig(**ssm_fields),
+                                         state=st, return_state=True)
+                out[name] = [t.full_tensor().detach()
+                             for t in (y, new["conv"], new["h"])]
+                for i, t in enumerate((y, new["conv"], new["h"])):
+                    loss = loss + (t * (i + 1.5)).mean()
+            leaves = [px, *pp.values(), ps["conv"], ps["h"]]
+            grads = torch.autograd.grad(loss, leaves)
+    finally:
+        ssm.F = spy.real
+    out["grads"] = [g.full_tensor() for g in grads]
+    out["padded"] = spy.padded
+    return out
