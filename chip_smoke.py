@@ -30,7 +30,10 @@ version:
    on the main path); then place, route and schedule every
    pair on a copy of the front, group the programs by sim signature, and
    on every one check the cycle stepper (K3, state in shared and in global
-   memory) against its plain version on the card, outputs bit-equal;
+   memory) against its plain version on the card, outputs bit-equal; also
+   on normal float inputs a bucket of single-op ``mac`` and ``mul``
+   programs (``mac`` rounded twice) and the ``mac`` program alone (one
+   FMA): ``k3_mac_check``;
 4. run the Explorer to the end on the card, traced by ``torch.profiler``
    (CUDA activity), with the launch counters set to 0 just before, read
    them just after, then rerun pnr, schedule and simulate on the CPU over
@@ -298,7 +301,9 @@ version:
    ``swap_delta_kernel``, ``alu_step_pallas`` one ``alu_step_kernel``
    (256 x 4,096 lanes, the whole op table), counters == trace, each
    result == its plain version (bit for bit; the transcendentals within
-   2 ulp); each timed beside its plain version and bound, ``hpwl_batched``
+   2 ulp), the ALU step again under the table without ``mul`` (``mac``
+   one FMA there, rounded twice under the whole table); each timed beside
+   its plain version and bound, ``hpwl_batched``
    also the kernel alone and its wrapper's pin-table sort;
 19. print every phase's wall, then one JSON line ``{"kernels": [...]}`` with launches, max |diff|,
    times and bounds of K1-K7 (K1's row: its launches counted in the
@@ -3687,6 +3692,77 @@ def roofline_phase(card, step_ms: float) -> dict:
             "mamba_cells_s": mamba_s}
 
 
+def k3_mac_check(dev) -> None:
+    """Phase 3's float-input bucket: a single-op ``mac`` program and a
+    single-op ``mul`` program in one bucket (its table holds ``mul``, so
+    ``mac`` rounds its product first), and the ``mac`` program alone (one
+    FMA), on normal float inputs (B, K) = (2, 64) from a seed.  K3 (state
+    in shared and in global memory) == its plain version bit for bit, and
+    ``mac``'s outputs the rounding the table calls for, on lanes where one
+    rounding and two differ."""
+    import numpy as np
+    import torch
+    from repro_torch.core import baseline_datapath, map_application
+    from repro_torch.core.dse import app_ops
+    from repro_torch.fabric import FabricSpec
+    from repro_torch.graphir.graph import Graph
+    from repro_torch.kernels import sim_step
+    from repro_torch.sim import build_sim, sim_signature
+    from repro_torch.sim.cycle import bucket_tensors
+
+    def program(op, arity):
+        g = Graph()
+        ins = [g.add_node("input", name=f"x{i}") for i in range(3)]
+        n = g.add_node(op)
+        for port in range(arity):
+            g.add_edge(ins[port], n, port)
+        g.mark_output(n)
+        dp = baseline_datapath(app_ops(g))
+        return build_sim(dp, map_application(dp, g, op), g,
+                         FabricSpec(4, 4), place_backend="python", chains=1,
+                         sweeps=8, device="cpu")[0]
+
+    mac_p, mul_p = program("mac", 3), program("mul", 2)
+    b_n, k_n = 2, 64
+    x = np.random.default_rng(0).normal(size=(b_n, k_n, 3)).astype(
+        np.float32)
+    a, b, c = (torch.from_numpy(x[:, :, j]).to(dev) for j in range(3))
+    fused, twice = sim_step._fma(a, b, c), a * b + c
+    tells = int(((fused.view(torch.int32) != twice.view(torch.int32))
+                 & ~(torch.isnan(fused) & torch.isnan(twice))).sum())
+    if tells == 0:
+        fail("phase 3's mac inputs tell one rounding from two on no lane")
+    ids = []
+    for progs, rule, what in (([mac_p, mul_p], twice, "rounded twice"),
+                              ([mac_p], fused, "one FMA")):
+        sig = sim_signature(progs[0], k_n, b_n)
+        if {sim_signature(p, k_n, b_n) for p in progs} != {sig}:
+            fail("the single-op mac and mul programs span two sim "
+                 "signatures")
+        arrs = [np.ascontiguousarray(x[:, :, [int(n[1:]) for n in
+                                              p.input_names]])
+                for p in progs]
+        tabs, xs, op_ids = bucket_tensors(progs, arrs, sig, dev)
+        ids.append(op_ids.tolist())
+        kw = dict(cycles=sig[8], latch_depth=sig[9])
+        want = sim_step.simulate_batch_plain(tabs, xs, op_ids, **kw)
+        for force_global in (False, True):
+            got = sim_step.simulate_batch_stepper(
+                tabs, xs, op_ids, force_global=force_global, **kw)
+            torch.cuda.synchronize()
+            if not same_bits(got, want):
+                fail(f"K3 (global={force_global}) differs from its plain "
+                     f"version on the float-input mac bucket "
+                     f"{[p.ops for p in progs]}")
+        if not same_bits(got[0][:, :, progs[0].out_cols[0]], rule):
+            fail(f"K3's mac in the bucket {[p.app_name for p in progs]} is "
+                 f"not {what}")
+    print(f"  float-input mac buckets (op ids {ids[0]} with mul, {ids[1]} "
+          f"alone): K3 shared/global == plain, mac rounded twice beside "
+          f"mul and one FMA alone, {tells} of {b_n * k_n} lanes telling "
+          f"them apart", flush=True)
+
+
 #: phase 18: ``benchmarks/pnr_bench.py``'s batched-HPWL microbenchmark
 #: shape, 256 placements of the harris app on an 8x8 fabric (slot
 #: permutations, seed 0), and (rows, lanes) of the free-standing ALU step
@@ -3705,7 +3781,9 @@ def entry_points_phase(dev, card) -> list:
     the whole op table; the counters equal to the trace, and no other
     kernel of the sources launched.  Each result held to its plain
     version on the card: bit-equal (HPWLs and deltas are integers; the
-    IEEE-exact ALU ops), the transcendentals within 2 ulp.  Then each
+    IEEE-exact ALU ops), the transcendentals within 2 ulp; the ALU step
+    also in a second, uncounted pass under the table without ``mul``,
+    ``mac`` rounded twice in the first and one FMA in the second.  Then each
     timed with CUDA events beside its plain version and its bound, and
     ``hpwl_batched`` also the kernel alone (trace) and its wrapper's pin
     table.  Returns the kernels line's rows."""
@@ -3789,34 +3867,67 @@ def entry_points_phase(dev, card) -> list:
         fail("hpwl_pallas / hpwl_batched differ from their plain version")
     if not (torch.equal(new, want_new) and torch.equal(delta, want_delta)):
         fail("hpwl_delta_pallas differs from its plain version")
-    want_alu = sim_step.alu_step_plain(codes, *xs, ops)
     tiny = float(torch.finfo(torch.float32).tiny)
-    normal = ~((want_alu.abs() < tiny) & (want_alu != 0))
-    code = torch.broadcast_to(codes, alu.shape)
-    alu_err = 0.0
-    for k, op in enumerate(ops):
-        lanes_k = (code == k) & normal
-        g, w = alu[lanes_k], want_alu[lanes_k]
-        both_nan = torch.isnan(g) & torch.isnan(w)
-        if op in EP_TRANSCENDENTAL:
-            def ordered(x):
-                i = x.view(torch.int32).long()
-                return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
-            ulp = torch.where(both_nan, 0, (ordered(g) - ordered(w)).abs())
-            if int(ulp.max()) > 2:
-                fail(f"alu_step_pallas: {op} {int(ulp.max())} ulp from its "
-                     f"plain version")
-        elif not same_bits(g, w):
-            fail(f"alu_step_pallas differs from its plain version on {op}")
-        d = torch.where(both_nan | (g == w), 0.0, (g - w).abs())
-        alu_err = max(alu_err, float(d.max()) if d.numel() else 0.0)
+    fused = sim_step._fma(*xs)
+    twice = xs[0] * xs[1] + xs[2]
+    tells = (fused.view(torch.int32) != twice.view(torch.int32)) & ~(
+        torch.isnan(fused) & torch.isnan(twice))
+
+    def alu_held(got, codes, ops):
+        """``got`` against the plain version, op by op; ``mac`` also
+        against the rounding its table calls for.  The largest |diff|."""
+        want = sim_step.alu_step_plain(codes, *xs, ops)
+        normal = ~((want.abs() < tiny) & (want != 0))
+        code = torch.broadcast_to(codes, got.shape)
+        err = 0.0
+        for k, op in enumerate(ops):
+            lanes_k = (code == k) & normal
+            g, w = got[lanes_k], want[lanes_k]
+            both_nan = torch.isnan(g) & torch.isnan(w)
+            if op in EP_TRANSCENDENTAL:
+                def ordered(x):
+                    i = x.view(torch.int32).long()
+                    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+                ulp = torch.where(both_nan, 0,
+                                  (ordered(g) - ordered(w)).abs())
+                if int(ulp.max()) > 2:
+                    fail(f"alu_step_pallas: {op} {int(ulp.max())} ulp from "
+                         f"its plain version")
+            elif not same_bits(g, w):
+                fail(f"alu_step_pallas differs from its plain version on "
+                     f"{op} (table of {len(ops)} ops)")
+            d = torch.where(both_nan | (g == w), 0.0, (g - w).abs())
+            err = max(err, float(d.max()) if d.numel() else 0.0)
+        mac = code == ops.index("mac")
+        rule = twice if "mul" in ops else fused
+        if int((mac & tells).sum()) == 0 or not same_bits(got[mac],
+                                                          rule[mac]):
+            fail(f"alu_step_pallas: mac under a table "
+                 f"{'with' if 'mul' in ops else 'without'} mul is not "
+                 f"{'rounded twice' if 'mul' in ops else 'one FMA'}, or no "
+                 f"lane tells the roundings apart")
+        return err, int((mac & tells).sum())
+
+    alu_err, tell_full = alu_held(alu, codes, ops)
+    # a second pass (not counted) under the table without mul, where mac
+    # is one FMA; the whole table holds mul, so mac rounds twice there
+    ops_nm = tuple(o for o in ops if o != "mul")
+    codes_nm = torch.randint(0, len(ops_nm), (lanes,), generator=gen,
+                             device=dev, dtype=torch.int32)
+    err_nm, tell_nm = alu_held(sim_step.alu_step_pallas(codes_nm, *xs,
+                                                        ops_nm),
+                               codes_nm, ops_nm)
+    alu_err = max(alu_err, err_nm)
     print(f"entry points on the card: one launch each, the trace's "
           f"{want_trace}; hpwl_pallas {float(one)} and hpwl_batched (256 "
           f"totals, per-net costs too) == plain bit for bit; "
           f"hpwl_delta_pallas over {len(nets)} nets (+2 padding): delta "
           f"{float(delta)} == plain, new costs bit-equal; alu_step_pallas "
           f"over {rows}x{lanes} lanes and {len(ops)} ops == plain (exact "
-          f"ops bit for bit, transcendentals within 2 ulp)", flush=True)
+          f"ops bit for bit, transcendentals within 2 ulp; mac rounded "
+          f"twice, {tell_full} lanes telling it from one FMA), and under "
+          f"the {len(ops_nm)} ops without mul == plain (mac one FMA, "
+          f"{tell_nm} lanes telling)", flush=True)
 
     # times: each call with its wrapper (CUDA events), its plain version
     # on the card, its bound; hpwl_batched also the kernel alone (trace)
@@ -4080,6 +4191,7 @@ def main() -> int:
     print(f"K3 summed over the {len(sim_groups)} sim signatures: "
           f"{k3_sum:.4f} ms, with its wrapper's host work {k3_wrap_sum:.4f} "
           f"ms", flush=True)
+    k3_mac_check(dev)
 
     # -- 4: the main path, counted ----------------------------------------
     phase("4 main path: Explorer.run() on the card vs pnr, schedule and "

@@ -47,9 +47,12 @@
 //
 // Arithmetic follows the JAX package's simulator under XLA's CPU backend
 // bit for bit on every IEEE-exact op: NaN-propagating min/max with -0 < +0,
-// sign keeping -0 and NaN, mac as one fused multiply-add, round half to
-// even, 2**b exact for integer b.  Build with --fmad=false and without fast
-// math so nothing else is contracted or approximated.
+// sign keeping -0 and NaN, round half to even, 2**b exact for integer b.
+// mac rounds as XLA compiles it: one fused multiply-add when the op table
+// lacks mul (OP_MAC), the product rounded and then the sum when it holds
+// mul (OP_MAC2; the wrapper picks the id, kernel_op_ids in sim_step.py).
+// Build with --fmad=false and without fast math so nothing else is
+// contracted or approximated.
 //
 // `alu_step_kernel` is the reference's free-standing Pallas step
 // (`alu_step_pallas`): the same `alu` over caller-given lanes.
@@ -71,6 +74,10 @@ enum AluOp {
   OP_ROUND, OP_EXP, OP_LOG, OP_TANH, OP_SIGMOID, OP_RSQRT, OP_SQRT, OP_POW,
   N_OPS
 };
+
+// ids past the table: mac with its product rounded first
+// (sim_step.py OP_MAC2)
+enum { OP_MAC2 = N_OPS };
 
 // event kinds, the order of the wrapper's lists (sim_step.py EVENT_KINDS)
 enum EvKind { EV_TILE, EV_SIG, EV_EXT, EV_LATCH, EV_OUT, N_EV };
@@ -110,6 +117,7 @@ __device__ float alu(int op, float a, float b, float c) {
     case OP_ABS: return fabsf(a);
     case OP_MUL: return a * b;
     case OP_MAC: return __fmaf_rn(a, b, c);
+    case OP_MAC2: return __fadd_rn(__fmul_rn(a, b), c);
     case OP_DIV: return a / b;
     case OP_RECIP: return 1.0f / a;
     case OP_SHL: return a * pow2f(b);

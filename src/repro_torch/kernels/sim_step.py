@@ -6,10 +6,14 @@ write the result.  Opcode 0 is always ``nop`` (padding lanes).  Semantics
 are those of the JAX package's simulator (``ALU_IMPLS`` under XLA's CPU
 backend) in float32: predicates are encoded as 1.0/0.0 and consumed as
 ``x != 0``; ``min``/``max`` propagate NaN and order -0 below +0; ``sign``
-keeps -0 and NaN; ``mac`` is one fused multiply-add; ``sqrt`` is
-correctly rounded.  So a schedule simulated here bit-matches the JAX
-package's simulator, and the interpreter on IEEE-exact op sets (the whole
-paper suite: add/sub/mul/min/max/shift/compare/select).
+keeps -0 and NaN; ``sqrt`` is correctly rounded.  ``mac`` rounds as XLA
+compiles it: one fused multiply-add when the dispatch's op table lacks
+``mul``, and ``a * b`` rounded then ``+ c`` rounded when it holds ``mul``
+(the product is then shared with ``mul``'s branch and not contracted);
+:func:`kernel_op_ids` applies that rule to a table, once, on the host.
+So a schedule simulated here bit-matches the JAX package's simulator,
+and the interpreter on IEEE-exact op sets (the whole paper suite:
+add/sub/mul/min/max/shift/compare/select).
 
 Plain PyTorch functions:
 
@@ -54,7 +58,8 @@ import torch
 from ..device import resolve_device
 from .pnr_cost import _check, _ptr, _stream
 
-__all__ = ["ALU_IMPLS", "EVENT_KINDS", "OP_IDS", "TABLES", "op_table",
+__all__ = ["ALU_IMPLS", "EVENT_KINDS", "OP_IDS", "OP_MAC2", "TABLES",
+           "kernel_op_ids", "op_table",
            "alu_step_reference", "alu_step_plain", "alu_step_jnp",
            "alu_step_pallas", "alu_step_masked",
            "event_lists", "launch_stepper", "micro_ops", "prepare_stepper",
@@ -86,9 +91,9 @@ def _pow2(b: torch.Tensor) -> torch.Tensor:
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 ``a * b + c`` rounded once (XLA contracts ``mac`` into an
-    FMA): the exact product in float64, the sum rounded to odd there,
-    then one rounding to float32."""
+    """float32 ``a * b + c`` rounded once, as XLA contracts ``mac`` in a
+    table without ``mul``: the exact product in float64, the sum rounded
+    to odd there, then one rounding to float32."""
     p = a.double() * b.double()
     c64 = c.double()
     s = p + c64
@@ -157,7 +162,27 @@ ALU_IMPLS: Dict[str, Callable] = {
 
 #: global op id of every ALU op (the kernel's ``enum AluOp``)
 OP_IDS: Dict[str, int] = {name: i for i, name in enumerate(ALU_IMPLS)}
-_OP_NAMES = tuple(ALU_IMPLS)
+
+#: op id, past the table's, of ``mac`` rounded twice (``a * b`` rounded,
+#: then ``+ c``): the kernel's ``OP_MAC2``
+OP_MAC2 = len(ALU_IMPLS)
+
+#: the plain version of every op id a kernel reads
+_IMPL_OF_ID: Tuple[Callable, ...] = tuple(ALU_IMPLS.values()) + (
+    lambda a, b, c: a * b + c,)
+
+
+def kernel_op_ids(ops: Sequence[str]) -> Tuple[int, ...]:
+    """The op id a kernel reads for each entry of the op table ``ops``.
+
+    XLA contracts ``mac``'s ``a * b + c`` into one FMA only when the
+    dispatch has no ``mul``: with ``mul`` in the table the product is
+    shared with ``mul``'s branch and rounded before ``+ c``.  So ``mac``
+    is :data:`OP_MAC2` in a table that holds ``mul``, ``OP_IDS["mac"]``
+    otherwise; every other op is its :data:`OP_IDS` entry."""
+    twice = "mul" in ops
+    return tuple(OP_MAC2 if twice and name == "mac" else OP_IDS[name]
+                 for name in ops)
 
 
 def op_table(used_ops: Sequence[str]) -> Tuple[str, ...]:
@@ -192,12 +217,18 @@ def alu_step_reference(codes: np.ndarray, a: np.ndarray, b: np.ndarray,
 def alu_step_plain(codes: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                    c: torch.Tensor, ops: Tuple[str, ...]) -> torch.Tensor:
     """Compute-all-select dispatch: every op of the static table on every
-    lane, selected by opcode (0 -> 0.0).  codes broadcast to ``a``."""
+    lane, selected by opcode (0 -> 0.0).  codes broadcast to ``a``;
+    ``mac`` rounds by the table (:func:`kernel_op_ids`)."""
+    return _alu_by_ids(codes, a, b, c, kernel_op_ids(ops))
+
+
+def _alu_by_ids(codes, a, b, c, ids: Sequence[int]) -> torch.Tensor:
+    """:func:`alu_step_plain` over a table of op ids: code ``k`` runs op
+    id ``ids[k]``."""
     out = torch.zeros_like(a)
-    for k, name in enumerate(ops):
-        if name == "nop":
-            continue
-        out = torch.where(codes == k, ALU_IMPLS[name](a, b, c), out)
+    for k, i in enumerate(ids):
+        if i != OP_IDS["nop"]:
+            out = torch.where(codes == k, _IMPL_OF_ID[i](a, b, c), out)
     return out
 
 
@@ -226,10 +257,10 @@ def alu_step_pallas(codes, a, b, c, ops: Tuple[str, ...], *,
     On the card one launch of ``alu_step_kernel`` (``csrc/sim_step.cu``:
     K3's ALU dispatch ``alu`` over the lanes; counted in
     ``alu_step_pallas.launches``); on ``device="cpu"``
-    :func:`alu_step_plain`.  Both follow XLA's CPU semantics, ``mac`` one
-    FMA as the reference's simulator computes it (the reference's Pallas
-    step in interpret mode rounds its product first).  ``interpret`` is
-    accepted and ignored."""
+    :func:`alu_step_plain`.  Both follow XLA's CPU semantics, as the
+    reference's step does in interpret mode: ``mac`` one FMA when ``ops``
+    lacks ``mul``, its product rounded first when ``ops`` holds it
+    (:func:`kernel_op_ids`).  ``interpret`` is accepted and ignored."""
     dev = resolve_device(device)
     a, b, c = (torch.as_tensor(x, device=dev).to(torch.float32)
                for x in (a, b, c))
@@ -266,11 +297,10 @@ alu_step_pallas.launches = 0
 
 @functools.lru_cache(maxsize=64)
 def _op_ids_on(ops: Tuple[str, ...], dev: torch.device) -> torch.Tensor:
-    """The global op id of each entry of ``ops`` (int32, on ``dev``), made
-    once for each table and device: copying it to the card on every call
-    would set :func:`alu_step_pallas`'s time.  Read only."""
-    return torch.tensor([OP_IDS[name] for name in ops], dtype=torch.int32,
-                        device=dev)
+    """:func:`kernel_op_ids` of ``ops`` (int32, on ``dev``), made once for
+    each table and device: copying it to the card on every call would set
+    :func:`alu_step_pallas`'s time.  Read only."""
+    return torch.tensor(kernel_op_ids(ops), dtype=torch.int32, device=dev)
 
 
 def alu_step_masked(codes: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -323,8 +353,8 @@ def simulate_batch_plain(tables: Dict[str, torch.Tensor],
     """Plain version of K3: the reference's batched step function, every
     program and input row at once, one Python iteration per cycle.
 
-    ``inputs`` (G, B, K, ep) float32; ``op_ids`` (n_codes,) the global op
-    id (:data:`OP_IDS`) of each bucket opcode.  Returns the captured
+    ``inputs`` (G, B, K, ep) float32; ``op_ids`` (n_codes,) the op id
+    (:func:`kernel_op_ids`) of each bucket opcode.  Returns the captured
     outputs (G, B, K, op) float32.
     """
     t = {k: tables[k].long() if k != "const_pool" else tables[k]
@@ -334,7 +364,7 @@ def simulate_batch_plain(tables: Dict[str, torch.Tensor],
         s[k] for k in ("g", "ip", "up", "ep", "sp", "wp", "lp", "cp", "op"))
     _, b_n, k_n, _ = inputs.shape
     dev, d_n = inputs.device, latch_depth
-    ops = tuple(_OP_NAMES[i] for i in op_ids.tolist())
+    ids = op_ids.tolist()
     ii = t["ii"][:, None]                                     # (G, 1)
     n_steps, n_inst = t["dims"][:, 0], t["dims"][:, 1]
     lane_act = torch.arange(ip, device=dev)[None, :] < n_inst[:, None]
@@ -364,9 +394,9 @@ def simulate_batch_plain(tables: Dict[str, torch.Tensor],
             a, b, c3 = (take(operands, t["op_src"][:, :, u, j])
                         for j in range(3))
             act = (lane_act & (u < n_steps)[:, None])[:, None, :]
-            r = alu_step_masked(t["opcodes"][:, None, :, u], a, b, c3, ops,
-                                act)
-            operands[:, :, tmp_off + u:tmp_off + ip * up:up] = r
+            r = _alu_by_ids(t["opcodes"][:, None, :, u], a, b, c3, ids)
+            operands[:, :, tmp_off + u:tmp_off + ip * up:up] = torch.where(
+                act, r, torch.zeros_like(r))
 
         owner_fires = torch.gather(fire, 1, t["sig_owner"])[:, None, :]
         sig_new = torch.where(owner_fires,
@@ -455,7 +485,7 @@ def _check_indices(t, s, op_ids: torch.Tensor) -> None:
     bad = torch.stack([
         out_of(src, tmp_off + ip * up).any(), foreign.any(),
         out_of(t["opcodes"], op_ids.numel()).any(),
-        out_of(op_ids, len(OP_IDS)).any(),
+        out_of(op_ids, OP_MAC2 + 1).any(),
         out_of(t["wire_src"], s["sp"] + s["ep"] + s["wp"]).any(),
         out_of(t["sig_tmp"], ip * up).any(),
         out_of(t["sig_owner"], ip).any(),
@@ -555,8 +585,8 @@ def simulate_batch_stepper(tables: Dict[str, torch.Tensor],
     row; returns the captured outputs (G, B, K, op) float32.
 
     ``tables``: the stacked per-program tables (:data:`TABLES`);
-    ``inputs`` (G, B, K, ep) float32; ``op_ids`` (n_codes,) int32 global
-    op ids of the bucket's opcodes.
+    ``inputs`` (G, B, K, ep) float32; ``op_ids`` (n_codes,) int32 op ids
+    (:func:`kernel_op_ids`) of the bucket's opcodes.
 
     Kernel K3 (``sim_stepper_kernel``): one block per (program, input
     row) runs the whole cycle loop with the machine state resident in

@@ -458,7 +458,7 @@ def bucket_tensors(progs: List[SimProgram], arrs: List[np.ndarray],
     op_ids)`` on ``device``."""
     import torch
 
-    from ..kernels.sim_step import OP_IDS, op_table
+    from ..kernels.sim_step import kernel_op_ids, op_table
 
     ops = op_table(sorted(set().union(*(p.ops for p in progs)) - {"nop"}))
     code_of = {name: k for k, name in enumerate(ops)}
@@ -469,7 +469,7 @@ def bucket_tensors(progs: List[SimProgram], arrs: List[np.ndarray],
     inputs = np.zeros((len(progs), B, K, sig[2]), np.float32)
     for i, (p, a) in enumerate(zip(progs, arrs)):
         inputs[i, :, :, :p.n_ext] = a
-    op_ids = torch.tensor([OP_IDS[name] for name in ops], dtype=torch.int32)
+    op_ids = torch.tensor(kernel_op_ids(ops), dtype=torch.int32)
     return tables, torch.from_numpy(inputs).to(device), op_ids.to(device)
 
 

@@ -183,3 +183,30 @@ def test_alu_step_pallas_equals_plain(shared):
     jnp = sim_step.alu_step_jnp(*t, ALL_OPS)
     assert torch.equal(_bits(jnp), _bits(sim_step.alu_step_plain(
         torch.clamp(t[0], 0, len(ALL_OPS) - 1), *t[1:], ALL_OPS)))
+
+
+@pytest.mark.parametrize("with_mul", [False, True])
+def test_alu_step_kernel_mac_rounds_by_the_table(with_mul):
+    """``mac`` on normal float operands under the whole table without and
+    with ``mul``: the kernel == its plain version bit for bit, one FMA
+    without ``mul`` and the product rounded first with it, on lanes where
+    the two differ."""
+    _need_card()
+    ops = ALL_OPS if with_mul else tuple(o for o in ALL_OPS if o != "mul")
+    rng = np.random.default_rng(5)
+    rows, n = 4, 4096
+    a, b, c = (torch.from_numpy(rng.normal(size=(rows, n)).astype(
+        np.float32)).cuda() for _ in range(3))
+    codes = torch.from_numpy(np.where(
+        rng.random(n) < 0.9, ops.index("mac"),
+        rng.integers(0, len(ops), n)).astype(np.int32)).cuda()
+    before = sim_step.alu_step_pallas.launches
+    got = sim_step.alu_step_pallas(codes, a, b, c, ops)
+    assert sim_step.alu_step_pallas.launches == before + 1
+    want = sim_step.alu_step_plain(codes, a, b, c, ops)
+    mac = torch.broadcast_to(codes == ops.index("mac"), got.shape)
+    assert torch.equal(_bits(got[mac]), _bits(want[mac]))
+    fused, twice = sim_step._fma(a, b, c), a * b + c
+    assert not torch.equal(_bits(fused[mac]), _bits(twice[mac]))
+    rule = twice if with_mul else fused
+    assert torch.equal(_bits(got[mac]), _bits(rule[mac]))

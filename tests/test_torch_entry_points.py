@@ -13,11 +13,11 @@ ALU ops are bit-equal (NaNs equal) on operands and results that are not
 subnormal (XLA's CPU backend flushes them; the port keeps them); the
 transcendentals (exp, log, tanh, sigmoid, rsqrt, pow) are held to 2 ulp,
 tanh of the correctly rounded value (XLA's CPU tanh is a rational
-approximation).  ``mac`` is one FMA in the port; the reference's is one
-only where XLA contracts it: its jitted step with no ``mul`` in the op
-table.  Its Pallas step in interpret mode, and its jitted step with
-``mul`` in the table (the product shared with ``mul``'s branch), round
-the product first (:func:`test_mac_is_one_fma`).
+approximation).  ``mac`` is one FMA where XLA contracts it, in a table
+with no ``mul``, and rounds its product first in a table with ``mul``
+(the product shared with ``mul``'s branch), in the reference's jitted
+step and its Pallas step in interpret mode alike; the port follows that
+rule (:func:`test_mac_is_one_fma`, ``tests/test_torch_mac_rounding.py``).
 """
 
 import zlib
@@ -270,29 +270,28 @@ def test_alu_step_pallas_equals_reference(op):
         _held(op, got.numpy(), want, a)
 
 
-def test_mac_is_one_fma():
-    """The port's ``mac`` (both entry points, the whole op table) equals
-    the reference's jitted step where XLA contracts it into an FMA (a
-    table with no ``mul``) bit for bit; the reference's full-table jitted
-    step and its interpret-mode Pallas step round the product first,
-    which differs on some lanes (a fault of the reference, kept out of
-    the port: its simulator's ``mac`` would depend on the other ops of a
-    design)."""
+@pytest.mark.parametrize("with_mul", [False, True])
+def test_mac_is_one_fma(with_mul):
+    """The port's ``mac`` (both entry points) equals the reference's
+    jitted step and its Pallas step in interpret mode bit for bit under
+    the whole op table with and without ``mul``: one FMA without ``mul``
+    (XLA contracts it), the product rounded first with it (the product
+    shared with ``mul``'s branch); on some lanes the two differ."""
     codes, a, b, c = _alu_inputs("mac", zlib.crc32(b"mac"))
-    mac = codes == ALL_OPS.index("mac")
-    fused = t_step.op_table(["mac"] + [o for o in OTHER if o != "mul"])
-    want = np.asarray(r_step.alu_step_jnp(
-        np.full_like(codes, fused.index("mac")), a, b, c, fused))
+    ops = ALL_OPS if with_mul else tuple(o for o in ALL_OPS if o != "mul")
+    codes = np.int32([ops.index(ALL_OPS[k]) if ALL_OPS[k] in ops else 0
+                      for k in codes])
+    mac = codes == ops.index("mac")
+    fused = t_step._fma(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
     rounded = (a * b) + c
+    assert not sim_tests._bit_equal(fused[mac], rounded[mac]).all()
+    rule = rounded if with_mul else fused
+    for rf in (r_step.alu_step_jnp(codes, a, b, c, ops),
+               r_step.alu_step_pallas(codes, a, b, c, ops, interpret=True)):
+        assert sim_tests._bit_equal(np.asarray(rf)[mac], rule[mac]).all()
     for fn in (t_step.alu_step_jnp, t_step.alu_step_pallas):
-        got = fn(codes, a, b, c, ALL_OPS, device="cpu").numpy()
-        assert sim_tests._bit_equal(got[mac], want[mac]).all()
-    for rf in (r_step.alu_step_jnp(codes, a, b, c, ALL_OPS),
-               r_step.alu_step_pallas(codes, a, b, c, ALL_OPS,
-                                      interpret=True)):
-        rf = np.asarray(rf)[mac]
-        assert sim_tests._bit_equal(rf, rounded[mac]).all()
-        assert not sim_tests._bit_equal(rf, want[mac]).all()
+        got = fn(codes, a, b, c, ops, device="cpu").numpy()
+        assert sim_tests._bit_equal(got[mac], rule[mac]).all()
 
 
 def test_alu_step_codes_outside_the_table():

@@ -509,6 +509,41 @@ def test_k3_matches_plain(force_global):
                 assert int(_ulp(g, w).max()) <= 2, (prog.app_name, sig)
 
 
+@pytest.mark.parametrize("with_mul", [False, True])
+def test_k3_mac_rounds_by_the_table(with_mul):
+    """A single-op ``mac`` program alone (its table lacks ``mul``: one
+    FMA) and in one bucket with a single-op ``mul`` program (the bucket's
+    table holds ``mul``: the product rounded first), on normal float
+    inputs: K3 == its plain version bit for bit, and ``mac``'s outputs
+    are the rounding the table calls for, on lanes where the two differ."""
+    _need_card()
+    dev = torch.device("cuda")
+    progs = [_program(_single_op(op), op)
+             for op in (("mac", "mul") if with_mul else ("mac",))]
+    k_n, b_n = 64, 2
+    sig = sim_signature(progs[0], k_n, b_n)
+    assert {sim_signature(p, k_n, b_n) for p in progs} == {sig}
+    x = np.random.default_rng(3).normal(size=(b_n, k_n, 3)).astype(
+        np.float32)
+    arrs = [np.ascontiguousarray(x[:, :, [int(n[1:]) for n in
+                                          p.input_names]]) for p in progs]
+    tables, inputs, op_ids = bucket_tensors(progs, arrs, sig, dev)
+    mac_id = sim_step.OP_MAC2 if with_mul else sim_step.OP_IDS["mac"]
+    assert mac_id in op_ids.tolist()
+    kw = dict(cycles=sig[8], latch_depth=sig[9])
+    before = sim_step.simulate_batch_stepper.launches
+    got = sim_step.simulate_batch_stepper(tables, inputs, op_ids, **kw)
+    assert sim_step.simulate_batch_stepper.launches == before + 1
+    want = sim_step.simulate_batch_plain(tables, inputs, op_ids, **kw)
+    torch.cuda.synchronize()
+    assert bool(_same_bits(got, want).all())
+    a, b, c = (torch.from_numpy(x[:, :, j]).to(dev) for j in range(3))
+    fused, twice = sim_step._fma(a, b, c), a * b + c
+    assert not bool(_same_bits(fused, twice).all())
+    mac_out = got[0][:, :, progs[0].out_cols[0]]
+    assert bool(_same_bits(mac_out, twice if with_mul else fused).all())
+
+
 def test_k3_state_above_227_kb_runs_from_global_memory():
     """A bucket whose state does not fit in shared memory takes the
     global-memory placement by itself, and stays bit-equal."""
